@@ -1,14 +1,14 @@
 # Dev container for php_aho_corasick_tpu (reference analog: the upstream
 # Ubuntu+php-dev image, reference Dockerfile:39-46 + docker/*.sh helpers).
 #
-# CPU-only by default: tests run on a simulated 8-device mesh
-# (tests/conftest.py pins XLA_FLAGS/JAX_PLATFORMS); on a TPU VM base the
-# image off the matching libtpu stack instead and drop the CPU pin.
+# CPU-only: tests run on a simulated 8-device mesh (tests/conftest.py pins
+# XLA_FLAGS/JAX_PLATFORMS).  The GPU path (chip_smoke.py, bench.py) needs
+# JAX with its CUDA plugin on a machine with an NVIDIA GPU; both scripts
+# fail without one.
 #
-#   docker build -t php-ac-tpu .
-#   docker build --build-arg DEVEL_TOOLS=1 -t php-ac-tpu-dev .  # + gdb/valgrind
-#   docker run --rm php-ac-tpu                      # run the test suite
-#   docker run --rm php-ac-tpu python bench.py      # CPU-fallback bench
+#   docker build -t php-ac .
+#   docker build --build-arg DEVEL_TOOLS=1 -t php-ac-dev .  # + gdb/valgrind
+#   docker run --rm php-ac                      # run the test suite
 
 FROM python:3.11-slim
 
@@ -26,7 +26,7 @@ COPY php_aho_corasick_tpu ./php_aho_corasick_tpu
 COPY tests ./tests
 COPY benchmarks ./benchmarks
 COPY examples ./examples
-COPY bench.py ./
+COPY bench.py chip_smoke.py ./
 
 RUN pip install --no-cache-dir "jax[cpu]" numpy pytest && pip install --no-cache-dir -e .
 

@@ -8,7 +8,7 @@
   AC timing INCLUDES automaton construction per sample, exactly like the
   reference (``README.md:168-187``).
 
-Run on the default backend (TPU if available):  python benchmarks/benchmark_reference.py
+Run on the default backend (the GPU when present):  python benchmarks/benchmark_reference.py
 Smaller/quicker:  python benchmarks/benchmark_reference.py --samples 3 --naive-needles 64
 """
 

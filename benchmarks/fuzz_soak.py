@@ -57,12 +57,11 @@ def one_case(rng: random.Random) -> dict:
         docs.append(bytes(d))
     cfg = dict(
         backend="device",
-        engine=rng.choice(["auto", "dfa", "kgram", "cascade", "tile"]),
+        engine=rng.choice(["auto", "dfa", "kgram", "cascade"]),
         auto_shard=rng.random() < 0.5,
         chunk_len=rng.choice([256, 512, 1024, 4096]),
         match_capacity=rng.choice([16, 256, 4096]),
         cascade_mode=rng.choice(["auto", "sampled", "anchored"]),
-        bloom_impl=rng.choice(["auto", "take", "pallas_vmem"]),
         table_format=rng.choice(["auto", "dense"]),
     )
     find_all = rng.random() < 0.8

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Bulk scanning: the "one automaton, many haystacks" production pattern
 (the reference's intended amortization, ``/root/reference/README.md:7-9``)
-on TPU — build once, warm the kernels, then stream corpora through
+on the device — build once, warm the kernels, then stream corpora through
 ``match_many``.
 
   python examples/bulk_scan.py
@@ -29,8 +29,8 @@ def main():
     m.finalize()
     print(m.describe())
 
-    # Pre-compile the device kernels for the serving shape (first TPU
-    # compiles take tens of seconds; do this once at startup).
+    # Pre-compile the device kernels for the serving shape (first
+    # compiles take seconds; do this once at startup).
     m.warmup(doc_bytes=1 << 20, n_docs=8)
 
     for batch in range(3):

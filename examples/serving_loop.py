@@ -1,7 +1,7 @@
 """Steady-state serving with device-resident corpora.
 
 The reference's scale story is one automaton amortized over many
-haystacks (`README.md:7-9` in /root/reference).  The TPU-native dual is
+haystacks (the reference's `README.md:7-9`).  The device-side dual is
 amortizing the *upload*: ``Matcher.device_corpus`` packs and transfers a
 corpus once, and every subsequent ``match_arrays`` call against the
 handle re-scans resident bytes at engine speed.  For throughput serving,
@@ -87,8 +87,8 @@ def main() -> None:
         f"{dt * 1e3:.1f} ms/corpus"
     )
 
-    # on a multi-chip mesh, shard the resident corpus over the devices
-    # (each chip holds 1/N of the rows; the per-shard record chains run
+    # on a multi-device mesh, shard the resident corpus over the devices
+    # (each device holds 1/N of the rows; the per-shard record chains run
     # under one shard_map dispatch): device_corpus(docs, shard=True)
 
 

@@ -1,16 +1,16 @@
-"""php_aho_corasick_tpu — a TPU-native multi-pattern matching framework.
+"""php_aho_corasick_tpu — an accelerator multi-pattern matching framework.
 
 A ground-up re-design of the capabilities of the ``ahocorasick`` PHP
 extension (ph4r05/php_aho_corasick, wrapping MultiFast v2.0): Aho-Corasick
 multi-pattern search with byte-exact positions, pattern metadata
 (key/id/aux), incremental build + finalize lifecycle, streaming, and
-search-and-replace — built TPU-first on JAX/XLA/Pallas:
+search-and-replace — built on JAX/XLA:
 
 * trie + BFS failure links compiled into a dense byte-class-compressed
   transition table (one gather per scanned byte — no failure chasing);
 * batched, halo-overlapped chunk scanning for throughput and long inputs;
 * data-parallel corpus sharding over a ``jax.sharding.Mesh`` with the table
-  replicated per chip and match results reduced via collectives;
+  replicated per device and match results reduced via collectives;
 * a C++ native builder for million-pattern (signature-scale) automata.
 """
 

@@ -109,7 +109,7 @@ def main(argv=None) -> int:
         p.add_argument("--backend", default="auto",
                        choices=["auto", "device", "host"])
         p.add_argument("--engine", default="auto",
-                       choices=["auto", "dfa", "kgram", "cascade", "tile"])
+                       choices=["auto", "dfa", "kgram", "cascade"])
 
     p = sub.add_parser("scan", help="scan a file, print matches as JSONL")
     common(p)

@@ -2,14 +2,19 @@
 
 The reference has only compile-time constants (``AC_PATTRN_MAX_LENGTH=1024``
 at ``src/multifast/actypes.h:148``; ``MF_REPLACEMENT_BUFFER_SIZE=2048`` at
-``actypes.h:153``) and a single runtime knob (``findAll``).  The TPU build
-adds the knobs that matter on accelerator hardware: chunking/halo geometry,
-device-side match-buffer capacity, table dtype, and mesh shape.
+``actypes.h:153``) and a single runtime knob (``findAll``).  The device
+build adds the knobs that matter on accelerator hardware: chunking/halo
+geometry, device-side match-buffer capacity, table dtype, and mesh shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+#: engine and bloom_impl values whose kernels were removed; ScanConfig
+#: rejects them by name instead of silently running another path
+_REMOVED_ENGINES = ("tile",)
+_REMOVED_BLOOM_IMPLS = ("pallas", "pallas_vmem")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,16 +39,12 @@ class ScanConfig:
     batch_pad: int = 8
 
     #: Use int16 transition tables when the state count allows it (halves
-    #: HBM/VMEM footprint of the table).
+    #: the table's device-memory footprint).
     allow_int16_states: bool = True
 
     #: Build the trie with the C++ native builder when the shared library is
     #: available (bit-identical output; much faster at signature scale).
     prefer_native_builder: bool = True
-
-    #: Upper bound on table bytes to keep resident in VMEM for the Pallas
-    #: fast path (per-core VMEM is ~16 MB; leave room for I/O blocks).
-    vmem_table_budget: int = 8 * 1024 * 1024
 
     #: Preferred mesh axis name for data-parallel corpus sharding.
     data_axis: str = "data"
@@ -56,14 +57,13 @@ class ScanConfig:
     #: above), "device" (always JAX), or "host" (always numpy scalar path).
     backend: str = "auto"
 
-    #: Device scan engine.  "auto" picks by measured cost (on TPU: the
-    #: sampled cascade when its stride beats the k-gram advance, else
-    #: k-gram, else dense; off-TPU any eligible cascade wins — see
-    #: Matcher._pick_engine and docs/PERF_NOTES.md).  Explicit values:
-    #: "dfa" (1-gram dense table), "kgram" (k-byte super-transitions),
-    #: "cascade" (bloom filter + exact verify; anchored mode is reachable
-    #: only by forcing cascade_mode="anchored" — on TPU the planner always
-    #: prefers sampled), "tile" (VMEM-resident table; Pallas-gated).
+    #: Device scan engine.  "auto": any eligible cascade for scans of at
+    #: least ``cascade_min_bytes``, else k-gram for scans of at least
+    #: ``kgram_min_bytes``, else dense (Matcher._pick_engine).  Explicit
+    #: values: "dfa" (1-gram dense table), "kgram" (k-byte
+    #: super-transitions), "cascade" (bloom filter + exact verify; the
+    #: planner prefers sampled mode, anchored mode is reachable by
+    #: forcing cascade_mode="anchored").
     engine: str = "auto"
 
     #: Transition-table layout: "auto" switches to the compressed
@@ -76,8 +76,9 @@ class ScanConfig:
     table_format: str = "auto"
 
     #: With table_format="auto", estimated dense table bytes above this
-    #: switch finalize to the compressed layout (default 1 GiB — well under
-    #: one v5e chip's 16 GB HBM, leaving room for the corpus and blooms).
+    #: switch finalize to the compressed layout (default 1 GiB, a small
+    #: share of one device's memory that leaves room for the corpus and
+    #: blooms; not yet re-measured against the compressed walk).
     dense_table_max_bytes: int = 1 << 30
 
     #: Byte budget for the k-gram super-transition table (S * C^k * 4).
@@ -104,26 +105,16 @@ class ScanConfig:
     #: with engine="auto", scans at least this large prefer the cascade.
     cascade_min_bytes: int = 1 << 20
 
-    #: bloom lookup implementation: "auto", "take", "pallas",
-    #: "pallas_vmem".  "auto" selects the bank-select VMEM Pallas kernel
-    #: ("pallas_vmem") on TPU whenever the planner could build one
-    #: (ops/filter_pallas.bloom_word_vmem — measured ~4x past the XLA
-    #: gather wall, docs/PERF_NOTES.md round 3), else "take".  (A one-hot
-    #: f32 matmul lookup was tried and PRUNED in round 3: inexact on the
-    #: v5e MXU — bf16 mantissa rounding of packed halves => missed
-    #: matches — and HBM-bound on the materialized one-hot.)
+    #: bloom lookup implementation: "auto" or "take" (both the XLA gather
+    #: filter).  The former "pallas" and "pallas_vmem" kernels are removed
+    #: and rejected.
     bloom_impl: str = "auto"
-
-    #: byte budget for the lane-partitioned VMEM bloom table ([N, 128]
-    #: int32 => N = budget/512 rows).  32 MiB fits v5e VMEM alongside the
-    #: kernel's io blocks; the planner sizes down for small pattern sets.
-    cascade_vmem_bloom_bytes: int = 32 * 1024 * 1024
 
     #: Byte length of the pattern-prefix refinement hash (capped by the
     #: shortest long pattern).  Soundness never depends on it (a true
     #: occurrence's window prefix is in the bloom by construction); more
-    #: bytes = finer stray discrimination, fewer bytes = less in-kernel
-    #: rolling-hash arithmetic (~8% of the round-5 fused kernel at 16).
+    #: bytes = finer stray discrimination, fewer bytes = less rolling-hash
+    #: arithmetic.
     cascade_prefix_len: int = 12
 
     #: cascade filter mode: "auto" (planner cost model), "sampled" (force
@@ -132,9 +123,9 @@ class ScanConfig:
     cascade_mode: str = "auto"
 
     #: log2 cap on the sampled positional bloom's word count (2**28 int32
-    #: words = 1 GiB HBM).  The planner only sizes up when the entry count
-    #: demands it (signature-scale sets; measured 25% faster than 256 MiB
-    #: at 1M needles) — small pattern sets stay at a few MiB.
+    #: words = 1 GiB of device memory).  The planner only sizes up when the
+    #: entry count demands it (signature-scale sets) — small pattern sets
+    #: stay at a few MiB.
     cascade_log2_words_max: int = 28
 
     #: planner bound on estimated candidate starts per scanned byte for the
@@ -180,6 +171,24 @@ class ScanConfig:
             raise ValueError(
                 f"cascade_mode must be auto/sampled/anchored, "
                 f"got {self.cascade_mode!r}"
+            )
+        if self.engine in _REMOVED_ENGINES:
+            raise ValueError(
+                f"engine {self.engine!r} was removed; use auto, dfa, kgram "
+                "or cascade"
+            )
+        if self.engine not in ("auto", "dfa", "kgram", "cascade"):
+            raise ValueError(
+                f"engine must be auto/dfa/kgram/cascade, got {self.engine!r}"
+            )
+        if self.bloom_impl in _REMOVED_BLOOM_IMPLS:
+            raise ValueError(
+                f"bloom_impl {self.bloom_impl!r} was removed; use auto or "
+                "take"
+            )
+        if self.bloom_impl not in ("auto", "take"):
+            raise ValueError(
+                f"bloom_impl must be auto/take, got {self.bloom_impl!r}"
             )
 
 

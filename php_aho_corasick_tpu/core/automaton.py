@@ -1,6 +1,6 @@
 """Finalize: trie -> compiled dense automaton.
 
-TPU-first re-design of the reference's ``ac_trie_finalize``
+Device-first re-design of the reference's ``ac_trie_finalize``
 (``src/multifast/ahocorasick.c:143-155``):
 
 * failure links computed by **level-order BFS with vectorized numpy steps**

@@ -1,19 +1,19 @@
 """Compiled automaton tables — the frozen, device-ready representation.
 
-This is the TPU-native replacement for the reference's pointer trie
+This is the device-side replacement for the reference's pointer trie
 (``src/multifast/node.h:37-58``): after finalize, goto/fail transitions are
 precomposed into a dense byte-class-compressed transition table so the scan
 is a single gather per byte, instead of the reference's runtime failure-link
 chasing (``src/multifast/ahocorasick.c:199-234``).
 
-Layout decisions (TPU-first):
+Layout decisions:
 
 * **Byte-class compression** — columns are equivalence classes of bytes.
   Every byte that appears in no pattern behaves identically (goes to root
   from every state), so the table is ``[S, C]`` with
   ``C = distinct-used-bytes + 1`` instead of ``[S, 256]``.  For typical
-  pattern sets this is a 10-40x size cut, which is what makes the table
-  VMEM-resident on TPU.
+  pattern sets this is a 10-40x size cut, which keeps the table small
+  enough to stay cache-resident.
 * **Finality by state order** — states are renumbered so all *final* states
   (states whose failure-chain match set is non-empty, the flattened result
   of ``node_collect_matches``, ``src/multifast/node.c:424-441``) occupy the
@@ -189,9 +189,9 @@ class CompressedAutomaton:
 
     The dense ``[S, C]`` table explodes when both S (millions of states)
     and C (up to 257 byte classes) are large — 1M random-byte patterns is
-    ~16 GB, beyond one chip's HBM (SURVEY §7 "Table memory at signature
-    scale").  This is the promised compressed-row format: a **dense bank +
-    single-exception rows** layout chosen for TPU execution — per byte the
+    ~16 GB (SURVEY §7 "Table memory at signature scale").  This is the promised compressed-row format: a **dense bank +
+    single-exception rows** layout chosen for branch-free device execution
+    — per byte the
     scan costs a fixed 3 gathers (no data-dependent failure chasing like
     the reference's ``ahocorasick.c:203-206``), vs 1 gather for the dense
     table:

@@ -5,8 +5,8 @@ single-exception sparse rows).  Selected automatically when the dense
 ``[S, C]`` table would exceed ``ScanConfig.dense_table_max_bytes`` — the
 regime the reference cannot reach at all (its pointer trie is ~100 B/node;
 1M random-byte patterns is ~16M nodes ≈ 1.6 GB of pointer-chasing memory,
-`src/multifast/node.h:37-58`), and where the dense TPU table (~16 GB)
-overflows HBM.  The compressed scan costs a fixed 3 gathers/byte vs the
+`src/multifast/node.h:37-58`), and where the dense table (~16 GB) outgrows
+``dense_table_max_bytes``.  The compressed scan costs a fixed 3 gathers/byte vs the
 dense table's 1 (ops/scan_jax.scan_states_compressed).
 
 Interface-compatible with :class:`DenseDfaModel` where the generic engine

@@ -1,9 +1,9 @@
 """Dense byte-class DFA — the flagship device model.
 
 Wraps a :class:`CompiledAutomaton` with its device-resident arrays and the
-scan entry points.  This is the TPU-side object that replaces the
+scan entry points.  This is the device-side object that replaces the
 reference's in-memory ``AC_TRIE_t`` (``src/multifast/ahocorasick.h:37-67``):
-the trie is gone; what ships to HBM is the precomposed ``[S, C]`` transition
+the trie is gone; what ships to the device is the precomposed ``[S, C]`` transition
 table, the 256-entry byte-class map, and the finality threshold.
 
 A host (numpy) scalar scanner is included as the small-input fast path

@@ -1,7 +1,7 @@
 """k-gram super-transition DFA — the gather-economy device model.
 
-TPU v5e's gather unit is the scan bottleneck (~100M elems/s, byte-at-a-time
-DFA => ~100 MB/s/chip).  This model precomposes k DFA steps into one table
+A byte-at-a-time DFA walk costs one dependent gather per byte.  This model
+precomposes k DFA steps into one table
 
     ``ktable[s, code(c_0..c_{k-1})] = end_state | (mid_final_flag << 30)``
 

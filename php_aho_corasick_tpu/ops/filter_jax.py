@@ -4,19 +4,20 @@ Two filter designs share this module (planning: models/cascade.py; the
 reference's hot loop they replace: ``ac_trie_search``,
 ``src/multifast/ahocorasick.c:199-234``):
 
-**Sampled** (``filter_hits_sampled`` + ``verify_windows`` — the TPU
+**Sampled** (``filter_hits_sampled`` + ``verify_windows`` — the
 headline engine).  Any occurrence of a pattern of length >= ``min_long``
 covers exactly one point of a ``stride = min_long - q + 1`` lattice, so a
 positional-alignment bloom (bit ``j`` set <=> some long pattern contains
 this q-gram at offset ``j``) is probed only at grid points: 1/stride
-gathers per byte against the v5e's ~72 M lookups/s gather wall.  Fetched
+bloom gathers per byte.  Fetched
 words AND together across 1-2 salted probes; nonzero words mark grid
 cells whose candidate window gets an on-device dense-DFA walk
 (``verify_windows``), so the match-free common case ships two scalars to
 the host.  Short patterns (< q) are matched exactly by compare-select and
 packed into a second per-cell bitmask.
 
-**Anchored** (``filter_candidates`` — CPU/GPU and short-min-length sets).
+**Anchored** (``filter_candidates`` — short-min-length sets, or forced
+with ``cascade_mode="anchored"``).
 Every position is tested as a potential match start against 1-3 staged
 blooms of q-gram class codes at fixed in-pattern offsets; surviving starts
 are compacted and verified by a vectorized host root-walk.
@@ -118,9 +119,9 @@ def sampled_gram_codes(
     never equal a pattern gram), so membership filtering stays sound and
     gets strictly more selective.
 
-    Implemented with cell-aligned reshapes/slices only (TPU vector loads
-    are lane-aligned; a stride-s slice of the byte axis would relayout
-    through cross-lane shuffles): position ``p + j`` lives in cell
+    Implemented with cell-aligned reshapes/slices only (a stride-s
+    slice of the byte axis would relayout through cross-lane shuffles):
+    position ``p + j`` lives in cell
     ``i = j // stride``, lane ``r = j % stride`` of the ``[B, M', stride]``
     reshape, so the code is a per-cell weighted reduction.  Grid grams
     overrunning the row read trailing zeros, which is harmless: such
@@ -153,19 +154,15 @@ def sampled_gram_codes_planes(
     chunks: jax.Array, q: int, stride: int, base: int = GRAM_BASE
 ) -> jax.Array:
     """:func:`sampled_gram_codes` via *cell-aligned word planes* — exact
-    same codes, ~3x faster on TPU (measured: 16.5 -> 5.7 ms per 128 MiB,
-    benchmarks/probe_planes2.py).
-
-    The [B, M, stride] reshape in the general path has a minor dim of
-    ``stride`` < 128, so every materialized intermediate is physically
-    (8,128)-tiled at up to 16x padding — that tiling tax, not the
-    arithmetic, was 36% of the round-2 filter cost.  When ``stride % 4 ==
+    same codes without the general path's ``[B, M, stride]`` reshape,
+    whose small minor dim pads every materialized intermediate.  When
+    ``stride % 4 ==
     0`` and ``stride | L``, cell ``m``'s q gram bytes live entirely in
     words ``(stride/4)*m + j4`` for ``j4 in 0..(q-1)//4`` — each plane
     ``P_j4[b, m]`` is laid out exactly like the grid, so code assembly is
     pure elementwise byte-extract/multiply-add over [B, M] arrays with no
     sub-128 minor dim anywhere.  Word packing itself is 4 strided lane
-    slices (cheap relayout, measured)."""
+    slices."""
     import numpy as np
 
     B, L = chunks.shape
@@ -226,9 +223,9 @@ def filter_hits_sampled(
     """Strided-sampled filter with *grid-domain* compaction.
 
     Device-side cost lives entirely on the sampled grid (``B * ceil(L /
-    stride)`` cells — the compaction/nonzero over the dense ``[B, L]``
-    start domain measurably dominated the bloom gather itself on TPU, see
-    docs/PERF_NOTES.md): one bloom gather per grid cell, plus a hit
+    stride)`` cells — a compaction over the dense ``[B, L]`` start
+    domain would cost more than the bloom gather itself): one bloom
+    gather per grid cell, plus a hit
     compaction over grid cells.  Each compacted hit carries two int32
     bitmask words the *host* expands into candidate starts
     (models/cascade.py expand_hits):
@@ -244,9 +241,9 @@ def filter_hits_sampled(
     contains exactly one grid point ``p``; the gram at ``p`` is the
     pattern's own gram at offset ``j = p - t <= stride - 1``, which the
     plan inserted with bit ``j`` set — the expanded starts are a superset
-    of all true starts and host verification removes the rest.  On
-    gather-starved TPUs (v5e: ~100M lookups/s) this divides the per-byte
-    gather cost by ``stride`` (9x for the headline 16-byte needles, q=8).
+    of all true starts and host verification removes the rest.  This
+    divides the per-byte gather count by ``stride`` (8x for the headline
+    16-byte needles at q=9).
 
     Returns ``(grid_idx [cap] flattened b * M + m ascending, long_word
     [cap], short_word [cap], n_hits)``; retry with doubled capacity when
@@ -259,12 +256,10 @@ def filter_hits_sampled(
     # from fill must coincide across independent probes (rate^n_probes) —
     # the lever that keeps million-pattern filters selective.
     #
-    # The gather runs as a lax.scan over NSLAB slabs of the grid: one
-    # monolithic [B*M] take measures ~111 M lookups/s on v5e while the
-    # same lookups chained through scan slabs reach ~132 M/s (probe5,
-    # docs/PERF_NOTES.md round-2) — the slab loop pipelines index
-    # computation with the gather unit instead of serializing behind one
-    # giant gather.
+    # The gather runs as a lax.scan over NSLAB slabs of the grid (a
+    # layout kept from the first accelerator this was tuned on, where the
+    # slab loop pipelined index computation with the gather; correct on
+    # any backend, and a retuning candidate).
     NSLAB = 8
     n_grid = B * M
     slab = -(-n_grid // NSLAB)
@@ -311,59 +306,25 @@ def filter_hits_sampled(
     return idx, lw, swo, n_hits
 
 
-#: grid-step height of the fused filter kernel; also the survivor-group
-#: size of its rank extraction (one group per block column), so the
+#: largest survivor-group size of the grouped take path's rank
+#: extraction (one group per block column of ``block_r`` cells); the
 #: learned ``cap_coarse`` scales with it (models/cascade.py seeds it from
-#: the planner's stray estimate x FUSED_BLOCK_R)
-FUSED_BLOCK_R = 1024
+#: the planner's stray estimate x the group size)
+GROUP_BLOCK_R = 1024
 
 
 @jax.jit
 def pack_corpus_words(chunks: jax.Array) -> jax.Array:
     """``[B, L] uint8 -> [B, L/4] int32`` little-endian word pack via 4
-    strided lane slices (the only corpus byte->word relayout that avoids
-    a sub-128 minor dim, docs/PERF_NOTES.md).  Module-level jit: one
-    compile per corpus SHAPE, shared by the fused phase grid, the
-    grouped take path, and the resident-corpus caches (a per-handle
+    strided lane slices (a byte->word relayout with no small minor
+    dim).  Module-level jit: one compile per corpus SHAPE, shared by the
+    grouped take path and the resident-corpus cache (a per-handle
     closure would re-trace per handle)."""
     wc = None
     for k in range(4):
         part = chunks[:, k::4].astype(jnp.uint32) << jnp.uint32(8 * k)
         wc = part if wc is None else (wc | part)
     return jax.lax.bitcast_convert_type(wc, jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("spc", "block_r"))
-def fused_phase_grid(
-    chunks: jax.Array,  # [B, L] uint8, (4*spc) | L
-    spc: int,  # corpus words per grid cell (stride // 4)
-    block_r: int = FUSED_BLOCK_R,
-) -> Tuple[jax.Array, ...]:
-    """Corpus word phases in the fused kernel's padded grid layout — the
-    word pack + phase split + grid padding that
-    :func:`filter_hits_sampled_vmem` otherwise re-runs per launch.
-    These are corpus-wide XLA passes (~6.8 ms of the 19.2 ms round-5
-    headline pass, benchmarks/probe_stage_budget.py), so resident-corpus
-    callers compute them ONCE per ``DeviceCorpus`` and thread the result
-    through ``phase_g`` (api.DeviceCorpus.fused_phases)."""
-    B, L = chunks.shape
-    stride = 4 * spc
-    assert L % stride == 0, "phase grid requires stride | L"
-    M = L // stride
-    wc = pack_corpus_words(chunks)
-    phases = [wc[:, p::spc] for p in range(spc)]
-    n_grid = B * M
-    R = -(-n_grid // 128)
-    n_blocks = max(1, -(-R // block_r))
-    R_pad = n_blocks * block_r
-
-    def to_grid(x):
-        xf = x.reshape(-1)
-        padn = (R_pad + 8) * 128 - xf.shape[0]
-        xf = jnp.concatenate([xf, jnp.zeros((padn,), xf.dtype)])
-        return xf.reshape(R_pad + 8, 128)
-
-    return tuple(to_grid(p) for p in phases)
 
 
 @functools.partial(
@@ -390,38 +351,36 @@ def filter_hits_sampled_grouped(
     prefix_salts: Tuple[int, ...] = (),
     prefix_log2: int = 0,
     prefix_len: int = 0,
-    block_r: int = FUSED_BLOCK_R,
+    block_r: int = GROUP_BLOCK_R,
     words2=None,  # [2**log2_words] int32 second-family bloom, or None
     wc=None,  # [B, L/4] int32 packed corpus words (resident-corpus cache)
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array, jax.Array]:
     """Take-path sampled filter with group rank extraction + per-slot
-    refinement — the signature-scale fast path (VERDICT r3 #4).
+    refinement — the signature-scale fast path.
 
     Stage A probes ONLY the first salt over the grid — at signature
     scale every full-grid gather against the GiB-class bloom costs
     ~100+ ms, so the second salt moves to stage B where it re-probes
     just the extracted slots (the classic cascade trade: the planner's
     2-probe AND keeps selectivity, but only one probe needs to touch
-    every cell).  Compaction goes through the fused kernel's group rank
-    extraction instead of a flat nonzero over every grid cell
-    (17 ns/element x 5.6M cells was ~95 ms of the round-3 signature
-    pass); ``block_r`` (the group size) is chosen by the caller from the
+    every cell).  Compaction goes through a per-group rank extraction
+    (:func:`group_rank_extract`) instead of a flat nonzero over every
+    grid cell; ``block_r`` (the group size) is chosen by the caller from
+    the
     single-salt stray estimate so slot arrays stay small.  Stage B then
     ANDs the remaining salts and the pattern-prefix hash probe per
-    single-alignment slot (window words gathered per slot).  Contract
-    matches ``filter_hits_sampled_vmem``: ``(grid_idx [cap] slot-order,
+    single-alignment slot (window words gathered per slot).  Returns
+    ``(grid_idx [cap] slot-order,
     long_word, short_word, n_final, n_coarse)`` with ``n_coarse`` the
     per-group survivor max (retry ``cap_coarse`` when exceeded).
     Requires ``stride % 4 == 0`` and ``stride | L`` (callers gate)."""
-    from .filter_pallas import group_rank_extract
-
     B, L = chunks.shape
     M = L // stride
     spc = stride // 4
     # ONE corpus word pack + phase split, shared by both code families
     # AND the per-slot window fetches (three separate passes before);
-    # resident-corpus callers pass the cached pack (``wc``) — the pack
-    # costs ~8 ms per 64 MiB launch (benchmarks/probe_sig_budget.py)
+    # resident-corpus callers pass the cached pack (``wc``) so it is
+    # paid once per corpus instead of once per launch
     if wc is None:
         wc = pack_corpus_words(chunks)
     wc = jax.lax.bitcast_convert_type(wc, jnp.uint32)
@@ -451,9 +410,8 @@ def filter_hits_sampled_grouped(
 
     code = _poly_code(GRAM_BASE)
 
-    # salted probes, AND-combined, as a lax.scan over NSLAB slabs (the
-    # slab loop pipelines index computation with the gather unit —
-    # ~111 -> ~132 M lookups/s, docs/PERF_NOTES.md)
+    # stage-A probes as a lax.scan over NSLAB slabs (see
+    # filter_hits_sampled)
     NSLAB = 8
     n_grid = B * M
     slab = -(-n_grid // NSLAB)
@@ -544,8 +502,6 @@ def filter_hits_sampled_grouped(
         and prefix_salts
     )
     if prefix_on:
-        from .filter_pallas import _prefix_hash_select, _window_offsets
-
         c_min = _window_offsets(spc, prefix_len)
         safe_cell = jnp.where(valid, idx, 0)
 
@@ -566,15 +522,124 @@ def filter_hits_sampled_grouped(
             )
             bit = bloom_hit_take(prefix_words, slots_b)
             ok = bit if ok is None else (ok & bit)
-        smask = (1 << stride) - 1 if stride < 32 else -1
-        v = lw & smask
-        single = (v != 0) & ((v & (v - 1)) == 0)
-        long_ok = (lw != 0) & (jnp.logical_not(single) | (ok == 1))
+        long_ok = prefix_refine_words(lw, h_s, ok, stride) != 0
         keep = long_ok | (swo != 0)
         idx = jnp.where(keep, idx, INT32_MAX)
         lw = jnp.where(keep, lw, 0)
         swo = jnp.where(keep, swo, 0)
     return idx, lw, swo, n_final, jnp.max(cnt)
+
+
+def _window_offsets(spc: int, l16: int):
+    """First word offset (relative to a cell's first word) covering the
+    candidate windows ``[p - (s-1), p + l16)`` of the cell at byte ``p``
+    (negative: windows of non-zero alignment start before the cell).
+    The upper word bound is implicit in the byte offsets
+    :func:`_prefix_hash_select` actually requests."""
+    s = 4 * spc
+    return -((s - 1 + 3) // 4)
+
+
+def _align_bit_i32(j: int) -> int:
+    """Two's-complement int32 value of alignment bit ``1 << j`` — what
+    ``low = w & -w`` evaluates to in int32 when bit ``j`` is the lowest
+    set bit.  For ``j == 31`` (stride 32) the Python literal ``1 << 31``
+    overflows int32 at trace time and, even promoted, would never equal
+    the INT32_MIN the lowest-set-bit trick produces
+    (tests/test_cascade.py::test_stride32_long_patterns_prefix_refinement)."""
+    v = 1 << j
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def _prefix_hash_select(get_plane, w, s, l16, c_min):
+    """Rolling prefix-hash of every cell's single-alignment candidate.
+
+    For each cell at byte ``p`` with coarse word ``w``, the candidate
+    window of alignment ``j`` is ``[p - j, p - j + l16)``.  Computes all
+    ``s`` window hashes by one base hash + ``s-1`` O(1) rolling steps
+    (leading byte removed via the static ``K^(l16-1)`` weight, trailing
+    byte appended), then selects the hash of the alignment named by the
+    LOWEST set bit of ``w`` — exactly the single-candidate case the
+    caller refines; multi-bit cells are passed through unrefined.
+
+    ``get_plane(c)`` returns the corpus word at offset ``c`` from the
+    cell's first word; bytes are extracted lazily and memoized."""
+    K = jnp.uint32(GRAM_BASE)
+    KL = jnp.uint32(pow(GRAM_BASE, l16 - 1, 1 << 32))
+    plane_memo = {}
+    byte_memo = {}
+
+    def b(x):
+        if x not in byte_memo:
+            c, k = c_min + x // 4, x % 4
+            if c not in plane_memo:
+                plane_memo[c] = get_plane(c)
+            byte_memo[x] = (
+                plane_memo[c].astype(jnp.uint32) >> jnp.uint32(8 * k)
+            ) & jnp.uint32(0xFF)
+        return byte_memo[x]
+
+    smask = (1 << s) - 1 if s < 32 else -1
+    w8 = w & smask
+    low = w8 & (0 - w8)  # lowest set bit (0 when no bits)
+    off = -4 * c_min - (s - 1)  # window start byte of alignment s-1
+    H = jnp.zeros(w.shape, jnp.uint32)
+    for i in range(l16):
+        H = H + b(off + i) * jnp.uint32(pow(GRAM_BASE, l16 - 1 - i, 1 << 32))
+    h = jnp.where(low == _align_bit_i32(s - 1), H.astype(jnp.int32), 0)
+    for j in range(s - 2, -1, -1):
+        H = (H - b(off) * KL) * K + b(off + l16)
+        off += 1
+        h = jnp.where(low == _align_bit_i32(j), H.astype(jnp.int32), h)
+    return h
+
+
+def prefix_refine_words(w, hval, ok, stride):
+    """Single-alignment refinement rule: zero the long word of a slot
+    whose single coarse alignment bit failed the prefix probe; multi-bit
+    slots pass unrefined (exactness never rests on a bloom)."""
+    smask = (1 << stride) - 1 if stride < 32 else -1
+    v = w & smask
+    single = (v != 0) & ((v & (v - 1)) == 0)
+    keep = (jnp.logical_not(single)) | (ok == 1)
+    return jnp.where(keep, w, 0)
+
+
+def group_rank_extract(w, sw, hval, block_r, mpr, n_blocks, n_grid):
+    """Survivor rank extraction per block column of the grouped take
+    path: a column cumsum ranks each column's hits and slot ``k``
+    captures the (k+1)-th hit's row / word / value by masked sums.
+    Inputs are flat ``[n_blocks * block_r * 128]`` arrays; returns
+    ``(r_s, w_s, swo_s, h_s, cnt)`` with slot arrays ``[n_blocks * mpr,
+    128]`` (``r_s`` = row within the block, -1 when empty) and ``cnt
+    [n_blocks, 128]`` the per-column survivor counts (``max(cnt) > mpr``
+    means slots were dropped and the launch must retry)."""
+    tot = n_blocks * block_r * 128
+    cell = jnp.arange(tot, dtype=jnp.int32)
+    hit = ((w | sw) != 0) & (cell < n_grid)
+
+    def g3(x):
+        return x.reshape(n_blocks, block_r, 128)
+
+    w3, sw3, c3, h3 = g3(w), g3(sw), g3(hval), g3(hit)
+    hi = h3.astype(jnp.int32)
+    cnt = jnp.sum(hi, axis=1)  # [n_blocks, 128]
+    ranks = jnp.cumsum(hi, axis=1)
+    row_i = jax.lax.broadcasted_iota(
+        jnp.int32, (n_blocks, block_r, 128), 1
+    )
+    r_s, w_s, swo_s, c_s = [], [], [], []
+    for k in range(mpr):
+        sel = h3 & (ranks == k + 1)
+        r_s.append(jnp.sum(jnp.where(sel, row_i + 1, 0), axis=1) - 1)
+        w_s.append(jnp.sum(jnp.where(sel, w3, 0), axis=1))
+        swo_s.append(jnp.sum(jnp.where(sel, sw3, 0), axis=1))
+        c_s.append(jnp.sum(jnp.where(sel, c3, 0), axis=1))
+
+    def st(parts):  # [n_blocks, mpr, 128] -> [n_blocks * mpr, 128]
+        return jnp.stack(parts, axis=1).reshape(n_blocks * mpr, 128)
+
+    return st(r_s), st(w_s), st(swo_s), st(c_s), cnt
 
 
 def _short_start_words(chunks, lengths, shorts, stride, M):
@@ -589,307 +654,6 @@ def _short_start_words(chunks, lengths, shorts, stride, M):
     cell = jnp.concatenate([sm, pad], 1).reshape(B, M, stride)
     weights = jnp.int32(1) << jnp.arange(stride, dtype=jnp.int32)
     return jnp.sum(cell * weights[None, None, :], axis=2, dtype=jnp.int32)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "q", "stride", "log2_rows", "salts", "pack", "log2_words",
-        "fine_salts", "shorts", "capacity", "cap_coarse",
-        "prefix_salts", "prefix_log2", "prefix_len", "interpret",
-    ),
-)
-def filter_hits_sampled_vmem(
-    table: jax.Array,  # [k * n_banks / pack, 128] int32 packed bank rows
-    words: jax.Array,  # [2**log2_words] int32 HBM bloom (fine stage)
-    chunks: jax.Array,  # [B, L] uint8
-    lengths: jax.Array,  # [B] int32
-    min_long_len: jax.Array,  # scalar int32 (0 disables the long path)
-    q: int,
-    stride: int,
-    log2_rows: int,
-    salts: Tuple[int, ...],
-    pack: int,
-    log2_words: int,
-    fine_salts: Tuple[int, ...],
-    shorts: Tuple[bytes, ...],
-    capacity: int,
-    cap_coarse: int,
-    prefix_words=None,  # [2**prefix_log2 / 32] int32 bit bloom, or None
-    prefix_salts: Tuple[int, ...] = (),
-    prefix_log2: int = 0,
-    prefix_len: int = 0,
-    interpret: bool = False,
-    phase_g=None,  # precomputed fused_phase_grid output (resident corpus)
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Strided-sampled two-stage VMEM filter — fused-kernel edition.
-
-    When the cell-aligned gate holds (``stride % 4 == 0`` and ``stride |
-    L``), stage 1 runs as ONE Mosaic dispatch
-    (ops/filter_pallas.fused_sampled_extract): gram codes are assembled
-    in-kernel from the corpus word phases, probed against the VMEM bank
-    blooms, and survivors rank-extracted per block column — eliminating
-    the XLA codes pass, the [B, M] bloom-word materialization round
-    trip, and the XLA cumsum/extract passes of the round-3 chain
-    (docs/PERF_NOTES.md round-4 item 1).  ``cap_coarse`` here means max
-    survivors per ``FUSED_BLOCK_R``-cell column group.
-
-    Stage 2 with a prefix plan (``prefix_words``): each slot whose
-    coarse word names exactly ONE alignment carries the rolling hash of
-    its ``prefix_len``-byte candidate window (computed in-kernel) and is
-    refined by a single bit-bloom probe against the pattern-prefix
-    bloom — this kills the true-q-gram-collision stray floor (grams
-    that genuinely equal a pattern gram but whose window is no match),
-    so ``n_final`` approaches the real match count and every downstream
-    capacity (window verify, compaction) collapses with it.  Multi-
-    alignment slots (rare) pass through unrefined — exactness is never
-    entrusted to the bloom.  Without a prefix plan, stage 2 is the
-    round-3 fine HBM q-gram re-probe.
-
-    Falls back to :func:`_filter_hits_sampled_vmem_rows` (the round-3
-    per-128-lane-row chain) when the alignment gate fails.  Same
-    contract: ``(grid_idx [cap], long_word, short_word, n_final,
-    n_coarse)``; retry doubled on either count overflowing."""
-    from .filter_pallas import fused_sampled_extract
-
-    B, L = chunks.shape
-    M = -(-L // stride)
-    if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
-        return _filter_hits_sampled_vmem_rows(
-            table, words, chunks, lengths, min_long_len,
-            q=q, stride=stride, log2_rows=log2_rows, salts=salts,
-            pack=pack, log2_words=log2_words, fine_salts=fine_salts,
-            shorts=shorts, capacity=capacity, cap_coarse=cap_coarse,
-            interpret=interpret,
-        )
-    prefix_on = (
-        prefix_words is not None
-        and stride <= 16
-        and 4 <= prefix_len <= 20
-        and prefix_salts
-    )
-    sw = (
-        _short_start_words(chunks, lengths, shorts, stride, M)
-        if shorts
-        else None
-    )
-    spc = stride // 4
-    block_r = FUSED_BLOCK_R
-    n_grid = B * M
-    R = -(-n_grid // 128)
-    n_blocks = max(1, -(-R // block_r))
-    R_pad = n_blocks * block_r
-
-    def to_grid(x, extra):
-        xf = x.reshape(-1)
-        padn = (R_pad + extra) * 128 - xf.shape[0]
-        xf = jnp.concatenate([xf, jnp.zeros((padn,), xf.dtype)])
-        return xf.reshape(R_pad + extra, 128)
-
-    if phase_g is None:
-        # corpus packed as int32 words via 4 strided lane slices, then
-        # split into the spc per-cell word phases the kernel consumes —
-        # resident-corpus callers precompute this once (fused_phase_grid)
-        phase_g = fused_phase_grid(chunks, spc=spc, block_r=block_r)
-    sw_g = to_grid(sw, 0) if sw is not None else None
-    mll = jnp.asarray(min_long_len, jnp.int32).reshape(1, 1)
-    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
-    # small prefix blooms (<= 32 [*, 128] rows, i.e. <= 2^17 bits) are
-    # probed IN-KERNEL on the extracted slot tile — the separate XLA
-    # stage-2a pass over every (mostly empty) slot cost ~1-3 ms of the
-    # round-5 headline pass (benchmarks/probe_stage_budget.py)
-    pb_rows = (1 << prefix_log2) // 32 // 128 if prefix_on else 0
-    inkernel_refine = bool(prefix_on) and 0 < pb_rows <= 32
-    r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(
-        table, phase_g, sw_g, mll,
-        salts=salts, log2_rows=log2_rows, pack=pack, q=q, spc=spc,
-        mpr=mpr, block_r=block_r, n_grid=n_grid,
-        l16=prefix_len if prefix_on else 0, prefix_on=bool(prefix_on),
-        prefix_table=(
-            prefix_words.reshape(pb_rows, 128) if inkernel_refine else None
-        ),
-        prefix_salts=tuple(prefix_salts) if inkernel_refine else (),
-        prefix_log2=prefix_log2 if inkernel_refine else 0,
-        interpret=interpret,
-    )
-
-    if inkernel_refine:
-        long_ok = w_s != 0  # refinement already applied in-kernel
-    elif prefix_on:
-        # stage 2a: one prefix-bloom bit probe per single-alignment slot
-        ok = None
-        for salt in prefix_salts:
-            hh = (h_s.astype(jnp.uint32) ^ jnp.uint32(salt)) * jnp.uint32(
-                KNUTH
-            )
-            slots_b = (hh >> jnp.uint32(32 - prefix_log2)).astype(
-                jnp.int32
-            )
-            bit = bloom_hit_take(prefix_words, slots_b)
-            ok = bit if ok is None else (ok & bit)
-        v = w_s & ((1 << stride) - 1)
-        single = (v != 0) & ((v & (v - 1)) == 0)
-        long_ok = (w_s != 0) & (jnp.logical_not(single) | (ok == 1))
-    else:
-        # stage 2: fine HBM q-gram re-probe (h_s carries the code)
-        wf = None
-        for salt in fine_salts:
-            h = (h_s.astype(jnp.uint32) ^ jnp.uint32(salt)) * jnp.uint32(
-                KNUTH
-            )
-            widx = (h >> jnp.uint32(32 - log2_words)).astype(jnp.int32)
-            probe = jnp.take(words, widx)
-            wf = probe if wf is None else (wf & probe)
-        w_s = w_s & wf
-        long_ok = w_s != 0
-
-    nrows = n_blocks * mpr
-    blk = (jnp.arange(nrows, dtype=jnp.int32) // mpr)[:, None]
-    lane = jnp.arange(128, dtype=jnp.int32)[None, :]
-    cell_s = (blk * block_r + r_s) * 128 + lane
-    alive = (
-        (r_s >= 0) & (long_ok | (swo_s != 0)) & (cell_s < n_grid)
-    )
-    slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
-    tot = nrows * 128
-    safe = jnp.minimum(slot, tot - 1)
-    valid = slot < INT32_MAX
-    idx = jnp.where(valid, jnp.take(cell_s.reshape(-1), safe), INT32_MAX)
-    lw = jnp.where(valid, jnp.take(w_s.reshape(-1), safe), 0)
-    swo = jnp.where(valid, jnp.take(swo_s.reshape(-1), safe), 0)
-    # slot order (block-major), NOT cell-ascending: no consumer needs the
-    # device sort — window verify treats slots independently, and the
-    # host paths (expand_hits -> np.unique, record emission -> lexsort)
-    # re-order anyway.  The capacity-sized 3-operand sort cost ~8 ms at
-    # the 1e-3 density caps (lax.sort measures ~57 ms / 1M elements).
-    return idx, lw, swo, n_final, jnp.max(cnt)
-
-
-def _filter_hits_sampled_vmem_rows(  # noqa: C901 - one fused device pass
-    table: jax.Array,  # [k * n_banks / pack, 128] int32 packed bank rows
-    words: jax.Array,  # [2**log2_words] int32 HBM bloom (fine stage)
-    chunks: jax.Array,  # [B, L] uint8
-    lengths: jax.Array,  # [B] int32
-    min_long_len: jax.Array,  # scalar int32 (0 disables the long path)
-    *,
-    q: int,
-    stride: int,
-    log2_rows: int,
-    salts: Tuple[int, ...],
-    pack: int,
-    log2_words: int,
-    fine_salts: Tuple[int, ...],
-    shorts: Tuple[bytes, ...],
-    capacity: int,
-    cap_coarse: int,
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Strided-sampled filter, two-stage Pallas VMEM-bloom edition.
-
-    Stage 1 (coarse, VPU): every grid cell's gram code probes ``k``
-    small per-salt VMEM blooms through the bank-select kernel
-    (ops/filter_pallas.bloom_word_vmem) — pure vector work, no
-    scalar-gather-unit serialization.  The round-2 filter stage sat AT
-    the measured ~132 M lookups/s XLA gather wall (docs/PERF_NOTES.md);
-    the coarse stage replaces that per-cell gather entirely.
-
-    Stage 1.5 (row-pack, vector): coarse survivors are *rank-extracted*
-    per 128-lane grid row instead of index-compacted.  ``jnp.nonzero``
-    costs ~17 ns/element on v5e regardless of sparsity, so the previous
-    element compaction over 16.8M cells at a 131k coarse capacity cost
-    ~40 ms of a ~100 ms pass (benchmarks/probe_vmem_breakdown.py).  A
-    lane cumsum ranks each row's hits; slot ``k`` of each row captures
-    its (k+1)-th hit's lane / word / code by masked one-lane SUM
-    reductions (sum, not max: bloom words carry bit 31).  ``cap_coarse``
-    becomes **max survivors per 128-lane row** (structurally <= 128, ~1
-    at planner stray rates); slot arrays are laid out ``[mpr, R]`` —
-    mpr-major — so no intermediate ever has a sub-128 minor dim.
-
-    Stage 2 (fine, XLA gather): every slot re-probes the big HBM
-    positional bloom (gathers ∝ ``mpr * R`` ~ cells/32), then one
-    element compaction over the slot array (~cells/32) + an in-device
-    sort restores the ascending dense contract of
-    :func:`filter_hits_sampled`.
-
-    Returns ``(grid_idx [cap], long_word [cap], short_word [cap],
-    n_final, n_coarse)`` — retry with ``cap_coarse`` doubled when
-    ``n_coarse > cap_coarse`` (some row overflowed its slots) and with
-    ``capacity`` doubled when ``n_final > capacity`` (exactness:
-    overflow never truncates)."""
-    from .filter_pallas import bloom_word_vmem
-
-    B, L = chunks.shape
-    M = -(-L // stride)
-    code = sampled_codes_best(chunks, q, stride)
-    w = bloom_word_vmem(
-        table, code, salts, log2_rows, pack=pack, interpret=interpret
-    )
-    w = jnp.where(min_long_len > 0, w, 0)
-
-    if shorts:
-        sm = short_pattern_mask(chunks, shorts)
-        sm &= (
-            jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
-            < lengths[:, None]
-        )
-        pad = jnp.zeros((B, M * stride - L), jnp.bool_)
-        cell = jnp.concatenate([sm, pad], 1).reshape(B, M, stride)
-        weights = (jnp.int32(1) << jnp.arange(stride, dtype=jnp.int32))
-        sw = jnp.sum(cell * weights[None, None, :], axis=2, dtype=jnp.int32)
-    else:
-        sw = jnp.zeros((B, M), jnp.int32)
-
-    # stage 1.5: rank-extract survivors per 128-lane grid row
-    n_grid = B * M
-    R = -(-n_grid // 128)
-    mpr = min(max(cap_coarse, 1), 128)
-
-    def _rows(x):
-        xf = x.reshape(-1)
-        pad_n = R * 128 - n_grid
-        if pad_n:
-            xf = jnp.concatenate([xf, jnp.zeros((pad_n,), xf.dtype)])
-        return xf.reshape(R, 128)
-
-    w2, sw2, code2 = _rows(w), _rows(sw), _rows(code)
-    hit = (w2 | sw2) != 0
-    ranks = jnp.cumsum(hit.astype(jnp.int32), axis=1)
-    n_coarse = jnp.max(ranks[:, -1])  # retry signal: > mpr means loss
-    lane_iota = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-    lane_s, w_s, sw_s, c_s = [], [], [], []
-    for k in range(mpr):
-        sel = hit & (ranks == k + 1)  # <= one lane per row
-        lane_s.append(
-            jnp.sum(jnp.where(sel, lane_iota + 1, 0), axis=1) - 1
-        )
-        w_s.append(jnp.sum(jnp.where(sel, w2, 0), axis=1))
-        sw_s.append(jnp.sum(jnp.where(sel, sw2, 0), axis=1))
-        c_s.append(jnp.sum(jnp.where(sel, code2, 0), axis=1))
-    lane_s = jnp.stack(lane_s)  # [mpr, R] (mpr-major: no minor dim < 128)
-    w_s = jnp.stack(w_s)
-    sw_s = jnp.stack(sw_s)
-    c_s = jnp.stack(c_s)
-
-    # stage 2: every slot re-probes the HBM bloom (gathers ∝ mpr * R)
-    wf = None
-    for salt in fine_salts:
-        h = (c_s.astype(jnp.uint32) ^ jnp.uint32(salt)) * jnp.uint32(KNUTH)
-        widx = (h >> jnp.uint32(32 - log2_words)).astype(jnp.int32)
-        probe = jnp.take(words, widx)
-        wf = probe if wf is None else (wf & probe)
-    w_s = w_s & wf
-
-    # element compaction over the slot array + sort back to ascending
-    alive = ((w_s | sw_s) != 0).reshape(-1)
-    slot, n_final = blocked_nonzero(alive, capacity)
-    safe = jnp.minimum(slot, mpr * R - 1)
-    valid = slot < INT32_MAX
-    cell = jnp.take(lane_s.reshape(-1), safe) + (safe % R) * 128
-    idx = jnp.where(valid, cell, INT32_MAX)
-    lw = jnp.where(valid, jnp.take(w_s.reshape(-1), safe), 0)
-    swo = jnp.where(valid, jnp.take(sw_s.reshape(-1), safe), 0)
-    idx, lw, swo = jax.lax.sort((idx, lw, swo), num_keys=1)
-    return idx, lw, swo, n_final, n_coarse
 
 
 @functools.partial(
@@ -943,16 +707,14 @@ def verify_windows(
     row_len = lengths[b]
     if n_classes <= 255:
         # Fetch window CLASSES as packed 4-per-int32 words: one corpus
-        # classify+pack pass (elementwise + strided lane slices, ~3 ms per
-        # 128 MiB) turns 2 gathers per window position (byte + class) into
-        # W/4+2 word gathers per window — 262k vs 1.5M lookups at the
-        # headline's 32k-window capacity (the gather unit is the wall:
-        # docs/PERF_NOTES.md).  Extraction is select/shift ALU only: the
+        # classify+pack pass (elementwise + strided lane slices) turns 2
+        # gathers per window position (byte + class) into W/4+2 word
+        # gathers per window — 262k vs 1.5M lookups at the headline's
+        # 32k-window capacity.  Extraction is select/shift ALU only: the
         # covering word of position j is one of two adjacent fetched words
-        # (carry select), never a per-j gather.  A byte-level bitcast pack
-        # was tried in round 1 and reverted (u8[...,4] minor-dim reshape
-        # physically pads 4 -> 128); the class pack below slices LANES
-        # (cls32[:, k::4]) which relayouts without materialized padding.
+        # (carry select), never a per-j gather.  The class pack slices
+        # LANES (cls32[:, k::4]), which avoids a u8[..., 4] minor-dim
+        # reshape.
         cls_all = _classes(chunks, byte_class, used_bytes).astype(jnp.uint32)
         cw = None
         for k in range(4):
@@ -983,10 +745,9 @@ def verify_windows(
         cls2d = _classes(byte.astype(jnp.uint8), byte_class, used_bytes)
         cols = [cls2d[:, j] for j in range(W)]
 
-    # unrolled walk (W <= 32 static): lax.scan's per-step loop overhead
-    # measurably dominates these small [H] gathers on the remote backend.
-    # Per-j [H] vectors throughout — an [H, W] matrix would tile-pad its
-    # minor dim W -> 128 physically.
+    # unrolled walk (W <= 32 static): no per-step loop overhead on these
+    # small [H] gathers.  Per-j [H] vectors throughout — an [H, W] matrix
+    # would pad its small minor dim W.
     state = jnp.zeros((H,), jnp.int32)
     flagged = jnp.zeros((H,), jnp.bool_)
     for j in range(W):
@@ -1039,9 +800,8 @@ def verify_windows_records(
     instead of flagged window cells that the host must re-walk, ships
     compacted ``(cell, state*32 + j)`` records — one per final position
     of each verified window — so host work (and the host<->device fetch)
-    is proportional to the MATCH count, not to windows x win_len.  The
-    dense regime's previous chain fetched flagged cells and re-walked
-    every window in numpy (73 ms of the 204 ms 1e-3 density pass).
+    is proportional to the MATCH count, not to windows x win_len (the
+    flagged-window chain re-walks every flagged window in numpy).
 
     Each window accumulates up to ``VERIFY_KR`` records during the
     unrolled 1-gram walk; a window with more final positions emits one
@@ -1170,9 +930,8 @@ def verify_windows_records2(
     """:func:`verify_windows_records` in 2-class super-steps: the packed
     table ``table2[s, c1*C + c2] = s2 | (s1 << 15)`` advances two window
     positions per dependent gather, halving the serial chain that floors
-    the match-dense verify stage (round-5: ~23 dependent gathers x ~82k
-    windows was ~35 ms of the 1e-3 density pass — the per-position
-    intermediate state ``s1`` rides in the entry's high bits, so finals
+    the match-dense verify stage (the per-position intermediate state
+    ``s1`` rides in the entry's high bits, so finals
     at BOTH positions are detected exactly, with the same per-window
     record slots / overflow sentinel).  Requires ``S < 2**15``
     (CascadeModel.records2_ok); positions outside ``[0, length)``
@@ -1370,98 +1129,6 @@ def verify_windows_records_compressed(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "q", "stride", "log2_rows", "salts", "pack", "log2_words",
-        "fine_salts", "shorts", "cap_a", "cap_coarse", "prefix_salts",
-        "prefix_log2", "prefix_len", "n_classes", "n_dense", "win_len",
-        "cap_r", "compressed", "use_k2", "interpret",
-    ),
-)
-def records_chain_vmem(
-    vmem_table,
-    words,
-    prefix_words,
-    table_flat,  # dense [S*C], or dense-bank rows when compressed
-    meta,  # compressed only (dummy otherwise)
-    exc_target,  # compressed only (dummy otherwise)
-    byte_class,
-    used_bytes,
-    chunks,
-    lengths,
-    emit_from,
-    min_long_len,
-    dense_final_start,  # compressed only (dummy otherwise)
-    final_start,
-    phase_g,  # tuple from fused_phase_grid, or None
-    *,
-    q: int,
-    stride: int,
-    log2_rows: int,
-    salts: Tuple[int, ...],
-    pack: int,
-    log2_words: int,
-    fine_salts: Tuple[int, ...],
-    shorts: Tuple[bytes, ...],
-    cap_a: int,
-    cap_coarse: int,
-    prefix_salts: Tuple[int, ...],
-    prefix_log2: int,
-    prefix_len: int,
-    n_classes: int,
-    n_dense: int,
-    win_len: int,
-    cap_r: int,
-    compressed: bool,
-    use_k2: bool = False,  # table_flat holds the packed 2-step table
-    interpret: bool = False,
-) -> Tuple[jax.Array, ...]:
-    """VMEM filter + record verification inlined into ONE jit graph.
-
-    ``launch_device_records`` used to dispatch
-    :func:`filter_hits_sampled_vmem` and :func:`verify_windows_records`
-    as two separate jit executables; per-executable launch overhead and
-    the un-fusable boundary between them cost ~2-3 ms of the 16 ms
-    round-5 headline pass (benchmarks/probe_stage_budget.py: stage2a +
-    compact 3.2 ms, verify 2.0 ms — both over only ~131k slot / 256
-    window elements, i.e. dominated by overhead, not work).  Inlining
-    both (their ``jax.jit`` wrappers collapse when traced inside this
-    one) gives XLA one schedule.  Returns ``(rec_cell, rec_pack, n_hits,
-    n_rec, n_coarse)`` exactly like the two-dispatch path."""
-    idx, _lw, _sw, n, nc = filter_hits_sampled_vmem(
-        vmem_table, words, chunks, lengths, min_long_len,
-        q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
-        log2_words=log2_words, fine_salts=fine_salts, shorts=shorts,
-        capacity=cap_a, cap_coarse=cap_coarse,
-        prefix_words=prefix_words if prefix_salts else None,
-        prefix_salts=prefix_salts, prefix_log2=prefix_log2,
-        prefix_len=prefix_len, interpret=interpret, phase_g=phase_g,
-    )
-    if compressed:
-        rc, rp, nr = verify_windows_records_compressed(
-            table_flat, meta, exc_target, byte_class, used_bytes, chunks,
-            lengths, emit_from, idx, dense_final_start, final_start,
-            n_classes=n_classes, n_dense=n_dense, stride=stride,
-            win_len=win_len, capacity=cap_r, n_hits=cap_a,
-        )
-    elif use_k2:
-        rc, rp, nr = verify_windows_records2(
-            table_flat, byte_class, used_bytes, chunks, lengths,
-            emit_from, idx, final_start,
-            n_classes=n_classes, stride=stride, win_len=win_len,
-            capacity=cap_r, n_hits=cap_a,
-        )
-    else:
-        rc, rp, nr = verify_windows_records(
-            table_flat, byte_class, used_bytes, chunks, lengths,
-            emit_from, idx, final_start,
-            n_classes=n_classes, stride=stride, win_len=win_len,
-            capacity=cap_r, n_hits=cap_a,
-        )
-    return rc, rp, n, nr, nc
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
         "n_classes", "kv", "stride", "win_len", "capacity", "n_hits",
     ),
 )
@@ -1641,7 +1308,7 @@ def verify_windows_compressed(
     jax.jit,
     static_argnames=(
         "n_classes", "q", "offsets", "log2_bits", "salts", "shorts",
-        "bloom_impl", "capacity",
+        "capacity",
     ),
 )
 def filter_candidates(
@@ -1658,7 +1325,6 @@ def filter_candidates(
     log2_bits: int,
     salts: Tuple[int, ...],
     shorts: Tuple[bytes, ...],
-    bloom_impl: str,
     capacity: int,
 ) -> Tuple[jax.Array, jax.Array]:
     """Candidate-start compaction.  Returns ``(start_idx [capacity],
@@ -1673,14 +1339,6 @@ def filter_candidates(
     host verification)."""
     B, L = chunks.shape
     cls = _classes(chunks, byte_class, used_bytes)
-    if bloom_impl == "pallas":
-        from .filter_pallas import bloom_hit_pallas
-
-        interpret = jax.default_backend() != "tpu"
-        hit = functools.partial(bloom_hit_pallas, interpret=interpret)
-    else:
-        hit = bloom_hit_take
-
     p_idx = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
     if offsets:  # long-pattern bloom stages (absent in shorts-only plans)
         code = gram_codes(cls, q, n_classes)
@@ -1690,7 +1348,7 @@ def filter_candidates(
         for s, (off, salt) in enumerate(zip(offsets, salts)):
             code_o = jax.lax.dynamic_slice_in_dim(code_ext, off, L, 1)
             slots = bloom_slots(code_o, log2_bits, salt)
-            cand &= hit(bloom_words[s], slots).astype(jnp.bool_)
+            cand &= bloom_hit_take(bloom_words[s], slots).astype(jnp.bool_)
         # long-pattern starts need min_long_len bytes left in the row
         cand &= p_idx + min_long_len <= lengths[:, None]
         cand &= min_long_len > 0

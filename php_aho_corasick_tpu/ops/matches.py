@@ -4,7 +4,7 @@ Bridges variable-length user haystacks and the fixed-shape device kernels in
 :mod:`scan_jax`:
 
 * **Packing** — documents are cut into rows of at most ``chunk_len`` payload
-  bytes with a left *halo* of ``max_len - 1`` overlap bytes (the TPU-native
+  bytes with a left *halo* of ``max_len - 1`` overlap bytes (the device-side
   replacement for the reference's sequential chunked streaming,
   ``ahocorasick.c:236-238``): the DFA state at any position depends on at
   most the previous ``max_len - 1`` bytes, so a chunk scanned from root with
@@ -68,11 +68,10 @@ def pack_documents(
 
     ``row_align``: the packed row length ``L`` is rounded up to this
     (>= ROW_ALIGN, and forced to a multiple of it).  The sampled
-    cascade's fused/grouped fast paths gate on ``stride | L``, and
-    rounding only the *chunk* length cannot guarantee that once the
-    halo and the 128-byte tile alignment are added — callers pass
-    ``lcm(stride, 128)`` so the gate holds for every corpus shape
-    (round-4 ADVICE.md low #2)."""
+    cascade's grouped fast path gates on ``stride | L``, and rounding
+    only the *chunk* length cannot guarantee that once the halo and the
+    128-byte row alignment are added — callers pass ``lcm(stride, 128)``
+    so the gate holds for every corpus shape."""
     meta: List[Tuple[int, int, int, int]] = []  # (doc, off, emit_from, len)
     doc_off: List[int] = []  # corpus offset of each row's doc
     pos = 0

@@ -7,9 +7,7 @@ so advancing the DFA costs exactly one gather:
 
     ``state[t+1] = table[state[t] * C + class(byte[t])]``
 
-TPU v5e has no vector gather (XLA's gather unit sustains ~100M elems/s,
-table-size independent — see docs/PERF_NOTES.md), so the kernels are built
-around gather *economy*:
+The kernels are built around gather *economy*:
 
 * byte -> class via compare-select (VPU) for small alphabets, not a lookup;
 * the **k-gram engine** precomposes k transitions into one table
@@ -24,7 +22,7 @@ around gather *economy*:
 
 The sequential dependency is over the row length; throughput comes from the
 batch dimension (many haystacks and/or halo-overlapped chunks of long
-haystacks in lockstep) — the TPU-native analog of the reference's "one
+haystacks in lockstep) — the device-side analog of the reference's "one
 automaton, many haystacks" amortization pattern.
 """
 
@@ -148,9 +146,9 @@ def scan_states_compressed(
     """DFA scan over the compressed (dense bank + single-exception row)
     table — see core/tables.CompressedAutomaton.  Fixed 3 gathers per byte
     (meta, exc_target, dense fallback) with no data-dependent control flow;
-    the TPU-shaped replacement for the reference's failure-link chasing
+    the branch-free replacement for the reference's failure-link chasing
     (``ahocorasick.c:203-206``) when the dense ``[S, C]`` table would
-    exceed HBM (byte-dense million-pattern sets, SURVEY §7)."""
+    exceed device memory (byte-dense million-pattern sets, SURVEY §7)."""
     from ..core.tables import EXC_PACK
 
     cls = _classes(chunks, byte_class, used_bytes)
@@ -218,8 +216,8 @@ def scan_and_compact_compressed(
 def blocked_nonzero(flat: jax.Array, capacity: int, blk: int = 8):
     """Multi-level fixed-capacity compaction of a sparse boolean vector.
 
-    ``jnp.nonzero(size=)`` costs ~17 ns/element on v5e
-    (docs/PERF_NOTES.md); reducing ``blk``-element blocks first and
+    ``jnp.nonzero(size=)`` costs time per input element; reducing
+    ``blk``-element blocks first and
     compacting only flagged blocks cuts the dominant pass to ``n/blk``
     elements (sparse masks => few flagged blocks).  When the block-flag
     vector still dwarfs the capacity, the block compaction RECURSES —
@@ -234,9 +232,8 @@ def blocked_nonzero(flat: jax.Array, capacity: int, blk: int = 8):
     if capacity * blk >= n:
         # dense regime (capacity within blk x of the input): the block
         # pyramid's capacity*blk second pass would cost MORE than one
-        # direct nonzero over the input (measured 17 ns/element either
-        # way, docs/PERF_NOTES.md) — e.g. the 1e-3 match-density rows,
-        # where capacity ~ n/2
+        # direct nonzero over the input — e.g. the 1e-3 match-density
+        # rows, where capacity ~ n/2
         (idx,) = jnp.nonzero(flat, size=capacity, fill_value=INT32_MAX)
         return idx.astype(jnp.int32), n_true
     nb = -(-n // blk)

@@ -1,6 +1,6 @@
 """Data-parallel sharded scan: pjit/shard_map over the ``data`` mesh axis.
 
-TPU-native replacement for the reference's "one automaton, many haystacks"
+Device-side replacement for the reference's "one automaton, many haystacks"
 amortization (``README.md:7-9``): chunk rows are sharded over chips, the
 transition table + byte-class map are replicated (HBM-resident per chip),
 and each chip runs the same compacted scan kernel on its rows.  Collectives
@@ -48,12 +48,9 @@ def per_shard_capacity(
     round-robin-by-block, so per-shard counts concentrate around
     ``global/n``).
 
-    This encodes the round-3 scaling finding as a rule
-    (docs/PERF_NOTES.md): ``verify_windows`` walks its full *static*
-    capacity, so a shard sized for the global count does ``n_shards`` x
-    too much verify work and total throughput FALLS as devices are added
-    (measured 0.050 -> 0.006 GB/s at 8 virtual devices with global-sized
-    per-shard caps; with per-shard sizing 2 devices beat 1).  The
+    ``verify_windows`` walks its full *static* capacity, so a shard
+    sized for the global count does ``n_shards`` x too much verify work
+    and total throughput FALLS as devices are added.  The
     ``floor`` is the fixed term of the scaling-efficiency model: chips
     stop helping once ``global/n`` drops under it."""
     mean = max(int(global_est), 1) / max(n_shards, 1)
@@ -185,109 +182,6 @@ def sharded_scan_compact(
         mesh=mesh,
         n_classes=n_classes,
         capacity=capacity,
-        collect=collect,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "n_classes", "capacity", "interpret", "collect",
-    ),
-)
-def _sharded_call_tile(
-    table_flat,
-    byte_class,
-    used_bytes,
-    chunks,
-    init_state,
-    lengths,
-    emit_from,
-    final_start,
-    *,
-    mesh: Mesh,
-    n_classes: int,
-    capacity: int,
-    interpret: bool,
-    collect: bool = False,
-):
-    """Sharded VMEM-tile scan (VERDICT r3 weak #4: the tile engine used
-    to silently fall back to the sharded dense kernel under a mesh).
-    Off-TPU the per-shard body runs the XLA dense scan instead — the
-    pallas interpreter cannot execute under shard_map (its per-primitive
-    vma checks reject kernel constants) and the tile kernel computes
-    exactly the dense-DFA semantics anyway."""
-    from ..ops.scan_jax import compact_final_states, scan_states
-    from ..ops.scan_pallas import scan_states_tile
-
-    data, rep = P(DATA_AXIS), P()
-    buf_spec = rep if collect else data
-
-    def local_fn(table, bc, ub, ch, ini, ln, ef, fs):
-        if interpret:
-            states, _ = scan_states(table, bc, ub, ch, ini, n_classes)
-            last = jnp.maximum(ln - 1, 0)
-            carry = jnp.take_along_axis(states, last[:, None], axis=1)[
-                :, 0
-            ]
-            carry = jnp.where(ln > 0, carry, ini)
-        else:
-            states, carry = scan_states_tile(
-                table, bc, ub, ch, ini, n_classes=n_classes, lengths=ln
-            )
-        idx, sts, n = compact_final_states(states, ln, ef, fs, capacity)
-        shard = jax.lax.axis_index(DATA_AXIS)
-        local_cells = ch.shape[0] * ch.shape[1]
-        idx = jnp.where(idx < INT32_MAX, idx + shard * local_cells, idx)
-        counts, gstats = _globalize_counts(n)
-        return (
-            _maybe_collect(idx, collect),
-            _maybe_collect(sts, collect),
-            counts,
-            gstats,
-            carry,
-        )
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(rep, rep, rep, data, data, data, data, rep),
-        out_specs=(buf_spec, buf_spec, rep, rep, data),
-    )
-    return fn(
-        table_flat, byte_class, used_bytes, chunks, init_state, lengths,
-        emit_from, final_start,
-    )
-
-
-def sharded_scan_compact_tile(
-    mesh: Mesh,
-    dev_arrays: dict,
-    chunks,
-    init_state,
-    lengths,
-    emit_from,
-    n_classes: int,
-    capacity: int,
-    collect: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Tile-engine edition of :func:`sharded_scan_compact` (same
-    contract)."""
-    import jax as _jax
-
-    return _sharded_call_tile(
-        dev_arrays["table_flat"],
-        dev_arrays["byte_class"],
-        dev_arrays["used_bytes"],
-        chunks,
-        init_state,
-        lengths,
-        emit_from,
-        dev_arrays["final_start"],
-        mesh=mesh,
-        n_classes=n_classes,
-        capacity=capacity,
-        interpret=_jax.default_backend() != "tpu",
         collect=collect,
     )
 
@@ -444,7 +338,7 @@ def _sharded_call_kgram(
     jax.jit,
     static_argnames=(
         "mesh", "n_classes", "q", "offsets", "log2_bits", "salts", "shorts",
-        "bloom_impl", "capacity", "collect",
+        "capacity", "collect",
     ),
 )
 def _sharded_call_cascade(
@@ -463,7 +357,6 @@ def _sharded_call_cascade(
     log2_bits: int,
     salts,
     shorts,
-    bloom_impl: str,
     capacity: int,
     collect: bool = False,
 ):
@@ -475,8 +368,7 @@ def _sharded_call_cascade(
         idx, n = filter_candidates(
             bw, bc, ub, ch, ln, ef, mll,
             n_classes=n_classes, q=q, offsets=offsets, log2_bits=log2_bits,
-            salts=salts, shorts=shorts, bloom_impl=bloom_impl,
-            capacity=capacity,
+            salts=salts, shorts=shorts, capacity=capacity,
         )
         shard = jax.lax.axis_index(DATA_AXIS)
         local_cells = ch.shape[0] * ch.shape[1]
@@ -628,117 +520,6 @@ def _sharded_call_sampled_verified(
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "n_classes", "q", "stride", "log2_rows", "salts",
-        "log2_words", "fine_salts", "shorts", "win_len", "cap_hits",
-        "cap_flagged", "cap_coarse", "verify_kv", "vmem_pack",
-        "prefix_salts", "prefix_log2", "prefix_len", "interpret",
-        "collect",
-    ),
-)
-def _sharded_call_sampled_verified_vmem(
-    vmem_table,
-    words,
-    table_flat,
-    byte_class,
-    used_bytes,
-    chunks,
-    lengths,
-    min_long_len,
-    final_start,
-    verify_ktable,
-    prefix_words,
-    *,
-    mesh: Mesh,
-    n_classes: int,
-    q: int,
-    stride: int,
-    log2_rows: int,
-    salts,
-    log2_words: int,
-    fine_salts,
-    shorts,
-    win_len: int,
-    cap_hits: int,
-    cap_flagged: int,
-    cap_coarse: int,
-    verify_kv: int,
-    vmem_pack: int,
-    prefix_salts=(),
-    prefix_log2: int = 0,
-    prefix_len: int = 0,
-    interpret: bool = False,
-    collect: bool = False,
-):
-    """Two-stage VMEM-bloom edition of the chained shard pass: the coarse
-    Mosaic bank-select kernel + HBM fine probe run per chip inside the
-    shard_map body (the bank tables replicate like every other automaton
-    array).  Extra replicated output: the ``[psum, pmax]`` of the coarse
-    survivor counts (its capacity must also not overflow).  With
-    ``verify_kv > 1`` the per-chip window walk uses the k-gram verifier
-    (``verify_ktable`` replicated; pass a dummy array at kv=1)."""
-    from ..ops.filter_jax import (
-        filter_hits_sampled_vmem,
-        verify_windows,
-        verify_windows_kgram,
-    )
-
-    data, rep = P(DATA_AXIS), P()
-    buf_spec = rep if collect else data
-
-    def local_fn(vt, w, tf, bc, ub, ch, ln, mll, fs, vkt, pw):
-        idx, _lw, _sw, n, nc = filter_hits_sampled_vmem(
-            vt, w, ch, ln, mll,
-            q=q, stride=stride, log2_rows=log2_rows, salts=salts,
-            pack=vmem_pack, log2_words=log2_words, fine_salts=fine_salts,
-            shorts=shorts, capacity=cap_hits, cap_coarse=cap_coarse,
-            prefix_words=pw if prefix_salts else None,
-            prefix_salts=prefix_salts, prefix_log2=prefix_log2,
-            prefix_len=prefix_len,
-            interpret=interpret,
-        )
-        if verify_kv > 1:
-            cells, nf = verify_windows_kgram(
-                vkt, bc, ub, ch, ln, idx, fs,
-                n_classes=n_classes, kv=verify_kv, stride=stride,
-                win_len=win_len, capacity=cap_flagged, n_hits=cap_hits,
-            )
-        else:
-            cells, nf = verify_windows(
-                tf, bc, ub, ch, ln, idx, fs,
-                n_classes=n_classes, stride=stride, win_len=win_len,
-                capacity=cap_flagged, n_hits=cap_hits,
-            )
-        shard = jax.lax.axis_index(DATA_AXIS)
-        local_cells = ch.shape[0] * (-(-ch.shape[1] // stride))
-        cells = jnp.where(
-            cells < INT32_MAX, cells + shard * local_cells, cells
-        )
-        _, gstats_hits = _globalize_counts(n)
-        nfs, gstats_flagged = _globalize_counts(nf)
-        _, gstats_coarse = _globalize_counts(nc)
-        return (
-            _maybe_collect(cells, collect),
-            nfs,
-            gstats_hits,
-            gstats_flagged,
-            gstats_coarse,
-        )
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(rep, rep, rep, rep, rep, data, data, rep, rep, rep, rep),
-        out_specs=(buf_spec, rep, rep, rep, rep),
-    )
-    return fn(
-        vmem_table, words, table_flat, byte_class, used_bytes, chunks,
-        lengths, min_long_len, final_start, verify_ktable, prefix_words,
-    )
-
-
 def sharded_sampled_verified(
     mesh: Mesh,
     cascade_model,
@@ -755,55 +536,10 @@ def sharded_sampled_verified(
     pmax]`` of that stage's counts.  The single-stage take path has no
     per-row slot capacity, so it reports zeroed coarse stats — the
     caller's ``nc <= _cap_coarse`` check must never trip there (mirrors
-    ``CascadeModel.scan_hits_sampled``).  Dispatches the two-stage VMEM
-    filter per chip when the model's bloom_impl resolves to it."""
+    ``CascadeModel.scan_hits_sampled``)."""
     plan = cascade_model.plan
     dev = cascade_model.device_arrays
     dd = cascade_model.dense_model.device_arrays
-    if cascade_model.bloom_impl() == "pallas_vmem":
-        import jax as _jax
-        import jax.numpy as _jnp
-
-        kv = cascade_model.verify_kv
-        vkt = (
-            cascade_model.verify_ktable_dev
-            if kv > 1
-            else _jnp.zeros((1,), _jnp.int32)
-        )
-        pw = dev.get("prefix_words")
-        return _sharded_call_sampled_verified_vmem(
-            dev["vmem_table"],
-            dev["sampled_words"],
-            dd["table_flat"],
-            dev["byte_class"],
-            dev["used_bytes"],
-            chunks,
-            lengths,
-            dev["min_long_len"],
-            dd["final_start"],
-            vkt,
-            pw if pw is not None else _jnp.zeros((1,), _jnp.int32),
-            mesh=mesh,
-            n_classes=cascade_model.auto.n_classes,
-            q=plan.q,
-            stride=plan.stride,
-            log2_rows=plan.vmem_log2_rows,
-            salts=plan.vmem_salts,
-            log2_words=plan.log2_words,
-            fine_salts=plan.sampled_salts,
-            shorts=plan.shorts,
-            win_len=cascade_model.win_len,
-            cap_hits=cap_hits,
-            cap_flagged=cap_flagged,
-            cap_coarse=cascade_model._cap_coarse,
-            verify_kv=kv,
-            vmem_pack=plan.vmem_pack,
-            prefix_salts=plan.prefix_salts if pw is not None else (),
-            prefix_log2=plan.prefix_log2,
-            prefix_len=plan.prefix_len,
-            interpret=_jax.default_backend() != "tpu",
-            collect=collect,
-        )
     cells, nfs, gh, gf = _sharded_call_sampled_verified(
         dev["sampled_words"],
         dd["table_flat"],
@@ -837,15 +573,13 @@ def sharded_sampled_verified(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "mesh", "n_classes", "n_dense", "q", "stride", "log2_rows",
-        "vmem_salts", "vmem_pack", "log2_words", "salts", "shorts",
-        "win_len", "cap_hits", "cap_rec", "cap_coarse", "prefix_salts",
-        "prefix_log2", "prefix_len", "block_r", "filter_kind",
-        "compressed", "use_k2", "has_words2", "interpret", "collect",
+        "mesh", "n_classes", "n_dense", "q", "stride", "log2_words",
+        "salts", "shorts", "win_len", "cap_hits", "cap_rec", "cap_coarse",
+        "prefix_salts", "prefix_log2", "prefix_len", "block_r", "grouped",
+        "compressed", "use_k2", "has_words2", "collect",
     ),
 )
 def _sharded_call_sampled_records(
-    vmem_table,
     words,
     words2,
     prefix_words,
@@ -866,9 +600,6 @@ def _sharded_call_sampled_records(
     n_dense: int,
     q: int,
     stride: int,
-    log2_rows: int,
-    vmem_salts,
-    vmem_pack: int,
     log2_words: int,
     salts,
     shorts,
@@ -880,32 +611,28 @@ def _sharded_call_sampled_records(
     prefix_log2: int = 0,
     prefix_len: int = 0,
     block_r: int = 1024,
-    filter_kind: str = "take",  # "vmem" | "grouped" | "take"
+    grouped: bool = False,  # grouped take filter, else the flat take
     compressed: bool = False,
     use_k2: bool = False,  # table_flat holds the packed 2-step table
     has_words2: bool = False,
-    interpret: bool = False,
     collect: bool = False,
 ):
     """Sampled filter + *match-record* verification chained inside ONE
-    shard_map dispatch — the multi-chip edition of the serving fast path
-    (VERDICT r4 missing #2: ``DeviceCorpus`` + records emission existed
-    only single-chip; a pod run regressed to flagged-cell host
-    expansion).  Per shard: the filter stage (VMEM fused kernel, grouped
-    take, or flat take — ``filter_kind``), then
+    shard_map dispatch — the multi-device edition of the serving fast
+    path.  Per shard: the filter stage (grouped take, or flat take —
+    ``grouped``), then
     ``verify_windows_records[_compressed]`` emitting compacted
     ``(cell, state*32+j)`` records with shard-globalized cell ids.
     Replicated outputs: per-shard record counts (the host's shard-major
     gather offsets) and the ``[psum, pmax]`` stats of hits / records /
     coarse survivors (capacity-retry decisions cost one scalar fetch).
 
-    Unused filter args (e.g. ``vmem_table`` off the VMEM path, ``meta``
-    on the dense path) are passed as dummy arrays — static flags keep
+    Unused filter args (e.g. ``words2`` without a second-family bloom,
+    ``meta`` on the dense path) are passed as dummy arrays — static flags keep
     them out of the traced computation."""
     from ..ops.filter_jax import (
         filter_hits_sampled,
         filter_hits_sampled_grouped,
-        filter_hits_sampled_vmem,
         verify_windows_records,
         verify_windows_records2,
         verify_windows_records_compressed,
@@ -914,19 +641,8 @@ def _sharded_call_sampled_records(
     data, rep = P(DATA_AXIS), P()
     buf_spec = rep if collect else data
 
-    def local_fn(vt, w, w2, pw, tf, mt, et, bc, ub, ch, ln, ef, mll, dfs,
-                 fs):
-        if filter_kind == "vmem":
-            idx, _lw, _sw, n, nc = filter_hits_sampled_vmem(
-                vt, w, ch, ln, mll,
-                q=q, stride=stride, log2_rows=log2_rows, salts=vmem_salts,
-                pack=vmem_pack, log2_words=log2_words, fine_salts=salts,
-                shorts=shorts, capacity=cap_hits, cap_coarse=cap_coarse,
-                prefix_words=pw if prefix_salts else None,
-                prefix_salts=prefix_salts, prefix_log2=prefix_log2,
-                prefix_len=prefix_len, interpret=interpret,
-            )
-        elif filter_kind == "grouped":
+    def local_fn(w, w2, pw, tf, mt, et, bc, ub, ch, ln, ef, mll, dfs, fs):
+        if grouped:
             idx, _lw, _sw, n, nc = filter_hits_sampled_grouped(
                 w, ch, ln, mll,
                 q=q, stride=stride, log2_words=log2_words, salts=salts,
@@ -982,13 +698,13 @@ def _sharded_call_sampled_records(
         local_fn,
         mesh=mesh,
         in_specs=(
-            rep, rep, rep, rep, rep, rep, rep, rep, rep,
+            rep, rep, rep, rep, rep, rep, rep, rep,
             data, data, data, rep, rep, rep,
         ),
         out_specs=(buf_spec, buf_spec, rep, rep, rep, rep),
     )
     return fn(
-        vmem_table, words, words2, prefix_words, table_flat, meta,
+        words, words2, prefix_words, table_flat, meta,
         exc_target, byte_class, used_bytes, chunks, lengths, emit_from,
         min_long_len, dense_final_start, final_start,
     )
@@ -1010,29 +726,16 @@ def sharded_sampled_records(
     [n_shards, cap_rec], n_recs [n_shards] replicated, gstats_hits [2],
     gstats_rec [2], gstats_coarse [2])``.  Callers gate on
     ``cascade_model.records_ok``; the filter stage auto-selects exactly
-    like the single-chip path (VMEM fused kernel on TPU when planned,
-    grouped take when the cell-alignment gate holds, flat take
-    otherwise — the last reports zeroed coarse stats)."""
-    import jax as _jax
+    like the single-device path (grouped take when the cell-alignment
+    gate holds, flat take otherwise — the last reports zeroed coarse
+    stats)."""
     import jax.numpy as _jnp
 
     plan = cascade_model.plan
     dev = cascade_model.device_arrays
     dd = cascade_model.dense_model.device_arrays
     dummy = _jnp.zeros((1,), _jnp.int32)
-    L = chunks.shape[1]
-    impl = cascade_model.bloom_impl()
-    if impl == "pallas_vmem":
-        filter_kind = "vmem"
-    elif (
-        not cascade_model._force_take
-        and plan.stride % 4 == 0
-        and L % plan.stride == 0
-        and cascade_model._cap_coarse <= 128
-    ):
-        filter_kind = "grouped"
-    else:
-        filter_kind = "take"
+    grouped = cascade_model.grouped_path(chunks.shape[1])
     pw = dev.get("prefix_words")
     w2 = dev.get("sampled_words2")
     compressed = cascade_model._compressed
@@ -1044,7 +747,6 @@ def sharded_sampled_records(
     else:
         tflat = dd["table_flat"]
     return _sharded_call_sampled_records(
-        dev.get("vmem_table", dummy),
         dev["sampled_words"],
         w2 if w2 is not None else dummy,
         pw if pw is not None else dummy,
@@ -1064,9 +766,6 @@ def sharded_sampled_records(
         n_dense=cascade_model.auto.n_dense if compressed else 0,
         q=plan.q,
         stride=plan.stride,
-        log2_rows=plan.vmem_log2_rows,
-        vmem_salts=plan.vmem_salts,
-        vmem_pack=plan.vmem_pack,
         log2_words=plan.log2_words,
         salts=plan.sampled_salts,
         shorts=plan.shorts,
@@ -1078,11 +777,10 @@ def sharded_sampled_records(
         prefix_log2=plan.prefix_log2,
         prefix_len=plan.prefix_len,
         block_r=cascade_model.take_group_block_r(),
-        filter_kind=filter_kind,
+        grouped=grouped,
         compressed=compressed,
         use_k2=use_k2,
         has_words2=w2 is not None,
-        interpret=_jax.default_backend() != "tpu",
         collect=collect,
     )
 
@@ -1146,7 +844,6 @@ def sharded_filter_candidates(
         log2_bits=plan.log2_bits,
         salts=plan.salts,
         shorts=plan.shorts,
-        bloom_impl=cascade_model.bloom_impl(),
         capacity=capacity,
         collect=collect,
     )

@@ -6,7 +6,7 @@ chunks: ``ac_trie_search(..., keep=1)`` preserves ``last_node`` and
 (``src/multifast/ahocorasick.c:191-194, 236-238``; the PHP layer always
 resets, ``php_ahocorasick.c:745``).
 
-TPU-native equivalent — two carry mechanisms, routed per feed:
+Device-side equivalent — two carry mechanisms, routed per feed:
 
 **Device state carry** (the default device path).  The carried DFA state
 (the ``last_node`` analog) is fed straight into the scan kernel as the

@@ -28,8 +28,8 @@ class ScanStats:
     capacity_retries: int = 0
     #: ``match_arrays_many`` batches that could NOT take the pipelined
     #: device-record fast path and fell back to sequential scans (see
-    #: ``records_fallback_reason`` for the most recent cause) — VERDICT
-    #: r4 weak #3: the fallback is correct but must not be silent
+    #: ``records_fallback_reason`` for the most recent cause): the
+    #: fallback is correct but must not be silent
     records_fallbacks: int = 0
     records_fallback_reason: str = ""
     last_engine: str = ""

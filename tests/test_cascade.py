@@ -20,6 +20,16 @@ def brute_force(patterns, text):
     return [(pos, pid) for pos, _, pid in out]
 
 
+@pytest.fixture
+def aligned_planner(monkeypatch):
+    """Make the planner prefer cell-aligned strides (a multiple of 4), the
+    grouped take filter's gate; the measured cost terms may choose none
+    at a test's small shapes."""
+    from php_aho_corasick_tpu.models import cascade as cascmod
+
+    monkeypatch.setattr(cascmod, "_CODES_GENERAL_S", 1.0)
+
+
 def run_cascade(patterns, text, **cfg_kw):
     cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
                      **cfg_kw)
@@ -154,30 +164,6 @@ def test_forced_cascade_on_ineligible_raises():
     m = Matcher([bytes([65 + i]) for i in range(20)], cfg)
     with pytest.raises(ValueError):
         m.match(b"AAAA" * 1000)
-
-
-def test_pallas_bloom_matches_take():
-    import jax.numpy as jnp
-    from php_aho_corasick_tpu.ops.filter_jax import bloom_hit_take
-    from php_aho_corasick_tpu.ops.filter_pallas import bloom_hit_pallas
-
-    rng = np.random.default_rng(0)
-    W = 4096  # 2^17 bits
-    words = jnp.asarray(rng.integers(0, 2**31, W, dtype=np.int64).astype(np.int32))
-    slots = jnp.asarray(rng.integers(0, W * 32, (1000,), dtype=np.int64).astype(np.int32))
-    a = np.asarray(bloom_hit_take(words, slots))
-    b = np.asarray(bloom_hit_pallas(words, slots, interpret=True))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_cascade_pallas_bloom_impl_end_to_end():
-    rng = random.Random(11)
-    patterns = [b"abcdefg", b"defgabc"]
-    text = bytearray(rng.choice(b"abcdefg") for _ in range(2000))
-    text[50:57] = b"abcdefg"
-    text = bytes(text)
-    got = run_cascade(patterns, text, bloom_impl="pallas")
-    assert got == brute_force(patterns, text)
 
 
 def test_cascade_sharded_parity():
@@ -457,18 +443,19 @@ def test_sampled_cascade_sharded_parity():
         )
 
 
-def test_force_take_escape_at_pathological_density():
-    """> 128 survivors per extraction group exceed the fused path's
+def test_force_take_escape_at_pathological_density(aligned_planner):
+    """> 128 survivors per extraction group exceed the grouped path's
     structural slot ceiling: the model must permanently fall back to the
     flat take filter and stay exact (a match every 16 bytes over 1 MiB
     puts ~512 hits in every 1024-cell column group)."""
     p = b"abcdefabcdefabcd"
     text = p * 70000
     cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
-                     cascade_mode="sampled", bloom_impl="pallas_vmem",
+                     cascade_mode="sampled", bloom_impl="take",
                      chunk_len=4096)
     m = Matcher([{"id": 0, "value": p}], cfg)
     m.finalize()
+    assert m.cascade_model.plan.stride % 4 == 0, m.cascade_model.plan.reason
     recs = m.match(text)
     assert m.cascade_model._force_take
     assert len(recs) == 70000
@@ -529,7 +516,7 @@ def test_records_path_emit_parity_dense():
 
 
 def test_sampled_sharded_take_path_dense_hits_terminates():
-    """Regression (ADVICE r3 high): the sharded take path reported its
+    """Regression: the sharded take path reported its
     hit gstats as the coarse gstats; with > 128 hits in a shard the
     128-clamped ``_cap_coarse`` could never satisfy ``nc <= cap`` and
     ``_run_sharded_cascade`` retried forever.  The take path must report
@@ -548,7 +535,6 @@ def test_sampled_sharded_take_path_dense_hits_terminates():
                      bloom_impl="take")
     m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)], cfg)
     assert m.cascade_model is not None
-    assert m.cascade_model.bloom_impl() == "take"
     res = m.match_many(docs)
     for doc, recs in zip(docs, res):
         assert [(r["pos"], r["keyIdx"]) for r in recs] == brute_force(
@@ -595,334 +581,6 @@ def test_sampled_matches_anchored_engine():
     assert sam == anc == brute_force(patterns, text)
 
 
-# ------------------------------------------------- VMEM pallas bloom (r3)
-
-def test_vmem_bloom_word_matches_host():
-    """Kernel-level parity: bloom_word_vmem (interpret) vs host hashing."""
-    import jax.numpy as jnp
-    from php_aho_corasick_tpu.ops.filter_jax import KNUTH
-    from php_aho_corasick_tpu.ops.filter_pallas import bloom_word_vmem
-
-    rng = np.random.default_rng(3)
-    log2_rows = 10
-    N = 1 << log2_rows
-    salts = tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF for i in range(4))
-    k = len(salts)
-    words = rng.integers(-(2**31), 2**31, k * N, dtype=np.int64).astype(
-        np.int32
-    )
-    codes = rng.integers(-(2**31), 2**31, 3000, dtype=np.int64).astype(
-        np.int32
-    )
-    table = jnp.asarray(words.reshape(k * N // 128, 128))
-    got = np.asarray(
-        bloom_word_vmem(table, jnp.asarray(codes), salts, log2_rows,
-                        interpret=True, force_pallas=True)
-    )
-    # the XLA-equivalent interpret path must agree bit-for-bit too
-    got_xla = np.asarray(
-        bloom_word_vmem(table, jnp.asarray(codes), salts, log2_rows,
-                        interpret=True)
-    )
-    np.testing.assert_array_equal(got, got_xla)
-    acc = None
-    for p, salt in enumerate(salts):
-        h = (codes.astype(np.uint64) ^ salt) * KNUTH & 0xFFFFFFFF
-        w = words[p * N + (h >> (32 - log2_rows)).astype(np.int64)]
-        acc = w if acc is None else acc & w
-    np.testing.assert_array_equal(got, acc)
-
-    # packed-bank layout (pack=4, 8-bit subwords): same probes must
-    # come back as the low-8-bit subword values
-    words8 = (words.view(np.uint32) & 0xFF).astype(np.uint32)
-    per = words8.reshape(k, N // 128 // 4, 4, 128)
-    packed = np.zeros((k, N // 128 // 4, 128), np.uint32)
-    for i in range(4):
-        packed |= per[:, :, i, :] << np.uint32(i * 8)
-    table4 = jnp.asarray(
-        packed.reshape(k * N // 128 // 4, 128).view(np.int32)
-    )
-    acc8 = None
-    for p, salt in enumerate(salts):
-        h = (codes.astype(np.uint64) ^ salt) * KNUTH & 0xFFFFFFFF
-        w = words8[p * N + (h >> (32 - log2_rows)).astype(np.int64)]
-        acc8 = w if acc8 is None else acc8 & w
-    for force in (True, False):
-        got4 = np.asarray(
-            bloom_word_vmem(table4, jnp.asarray(codes), salts, log2_rows,
-                            pack=4, interpret=True, force_pallas=force)
-        )
-        np.testing.assert_array_equal(got4, acc8.astype(np.int32))
-
-
-@pytest.mark.parametrize(
-    "pack,has_shorts,prefix_on",
-    [(1, False, False), (4, True, False), (4, False, True)],
-)
-def test_fused_sampled_extract_kernel_parity(pack, has_shorts, prefix_on):
-    """Round-4 fused kernel vs its XLA mirror, bit-for-bit: in-kernel
-    plane shifts (cross-block rolls, incl. the backward shifts of the
-    prefix-hash window), gram-code assembly, bank probe, rolling
-    prefix-hash select, per-column rank extraction, and the per-column
-    counts must agree between the Mosaic kernel body (pallas
-    interpreter) and _fused_extract_xla over a 2-block grid."""
-    import jax.numpy as jnp
-    from php_aho_corasick_tpu.ops.filter_jax import FUSED_BLOCK_R
-    from php_aho_corasick_tpu.ops.filter_pallas import (
-        fused_sampled_extract,
-    )
-
-    rng = np.random.default_rng(11 + pack)
-    q, stride = 9, 8
-    spc = stride // 4
-    log2_rows = 10
-    N = 1 << log2_rows
-    salts = tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF for i in range(3))
-    k = len(salts)
-    table = jnp.asarray(
-        rng.integers(0, 2**31, (k * (N // 128) // pack, 128))
-        .astype(np.int32)
-    )
-    n_blocks = 2
-    R_pad = n_blocks * FUSED_BLOCK_R
-    n_grid = R_pad * 128 - 555  # a padded tail exercises the cell gate
-    phase_g = tuple(
-        jnp.asarray(
-            rng.integers(-(2**31), 2**31, (R_pad + 8, 128), dtype=np.int64)
-            .astype(np.int32)
-        )
-        for _ in range(spc)
-    )
-    sw_np = (
-        rng.integers(0, 2, (R_pad, 128)).astype(np.int32)
-        * (rng.random((R_pad, 128)) < 0.01)
-        if has_shorts
-        else None
-    )
-    sw_g = jnp.asarray(sw_np.astype(np.int32)) if has_shorts else None
-    mll = jnp.ones((1, 1), jnp.int32)
-    kw = dict(
-        salts=salts, log2_rows=log2_rows, pack=pack, q=q, spc=spc,
-        mpr=16, block_r=FUSED_BLOCK_R, n_grid=n_grid, interpret=True,
-        l16=16 if prefix_on else 0, prefix_on=prefix_on,
-    )
-    got_k = fused_sampled_extract(
-        table, phase_g, sw_g, mll, force_pallas=True, **kw
-    )
-    got_x = fused_sampled_extract(table, phase_g, sw_g, mll, **kw)
-    for a, b in zip(got_k, got_x):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # sanity: some survivors were extracted and the counts match them
-    r_s, w_s, swo_s, c_s, cnt = (np.asarray(x) for x in got_k)
-    assert int(cnt.sum()) > 0
-    assert int((r_s >= 0).sum()) == int(np.minimum(cnt, 16).sum())
-
-
-@pytest.mark.parametrize("seed", range(4))
-def test_sampled_vmem_parity_fuzz(seed):
-    """Full-pipeline parity with the lane-partitioned VMEM bloom forced
-    (interpret mode off-TPU); mixed shorts + planted long occurrences."""
-    rng = random.Random(4200 + seed)
-    alphabet = b"abcdef"
-    patterns = list({
-        bytes(rng.choice(alphabet) for _ in range(rng.randint(9, 20)))
-        for _ in range(rng.randint(2, 50))
-    })
-    if seed % 2:
-        patterns += [b"xy", b"q"]
-    patterns = list(dict.fromkeys(patterns))
-    text = bytearray(rng.choice(alphabet) for _ in range(5000))
-    for _ in range(15):
-        p = rng.choice(patterns)
-        pos = rng.randrange(0, len(text) - len(p))
-        text[pos : pos + len(p)] = p
-    text = bytes(text)
-    got = run_cascade(
-        patterns, text, chunk_len=512, match_capacity=64,
-        cascade_mode="sampled", bloom_impl="pallas_vmem",
-        cascade_vmem_bloom_bytes=1 << 21,  # N=4096 keeps interpret fast
-    )
-    assert got == brute_force(patterns, text)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_sampled_vmem_parity_fuzz_full_byte_alphabet(seed):
-    """Full-256-byte alphabet drives n_classes past the packed-class
-    window verifier's 255-class gate (verify_windows falls back to byte
-    gathers) and the word-plane codes path over raw byte data."""
-    rng = random.Random(8600 + seed)
-    patterns = list({
-        bytes(rng.randrange(256) for _ in range(rng.randint(9, 18)))
-        for _ in range(rng.randint(8, 40))
-    })
-    # cover all 256 byte values so n_classes = 257 > 255 (the fallback
-    # branch) while max_len stays verifier-compatible
-    patterns += [bytes(range(16 * i, 16 * i + 16)) for i in range(16)]
-    patterns = list(dict.fromkeys(patterns))
-    text = bytearray(rng.randrange(256) for _ in range(4000))
-    for _ in range(12):
-        p = rng.choice(patterns)
-        pos = rng.randrange(0, len(text) - len(p))
-        text[pos : pos + len(p)] = p
-    text = bytes(text)
-    got = run_cascade(
-        patterns, text, chunk_len=512, match_capacity=64,
-        cascade_mode="sampled", bloom_impl="pallas_vmem",
-        cascade_vmem_bloom_bytes=1 << 21,
-    )
-    assert got == brute_force(patterns, text)
-
-
-def test_vmem_plan_attached_and_selective():
-    rng = random.Random(5)
-    patterns = list({
-        bytes(rng.choice(b"abcdef") for _ in range(16)) for _ in range(64)
-    })
-    cfg = ScanConfig(cascade_mode="sampled",
-                     cascade_vmem_bloom_bytes=1 << 21)
-    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)], cfg)
-    m.finalize()
-    plan = plan_cascade([p.value for p in m._patterns], m.automaton, cfg)
-    assert plan.vmem_words is not None
-    k = len(plan.vmem_salts)
-    N = 1 << plan.vmem_log2_rows
-    pack = plan.vmem_pack
-    # subword width must cover every alignment bit of the plan's stride
-    assert pack == (4 if plan.stride <= 8 else 2 if plan.stride <= 16 else 1)
-    assert plan.vmem_words.shape == (k * N // 128 // pack, 128)
-    assert 2 <= k <= 8
-    assert k * N * 4 // pack <= cfg.cascade_vmem_bloom_bytes
-    assert plan.vmem_est_stray <= 0.01
-    # every pattern's every alignment gram must probe positive (soundness)
-    from php_aho_corasick_tpu.models.cascade import _alignment_gram_codes
-    from php_aho_corasick_tpu.ops.filter_jax import KNUTH
-
-    longs = [p.value for p in m._patterns]
-    codes, aligns = _alignment_gram_codes(longs, plan.q, plan.stride)
-    acc = None
-    words = plan.vmem_words.view(np.uint32).reshape(-1)
-    sw = 32 // pack
-    for p_i, salt in enumerate(plan.vmem_salts):
-        h = (codes ^ np.uint32(salt)) * np.uint32(KNUTH)
-        rows = (h >> np.uint32(32 - plan.vmem_log2_rows)).astype(np.int64)
-        lane = rows & 127
-        bank = rows >> 7
-        phys = (bank // pack) * 128 + lane
-        w = words[p_i * (N // pack) + phys]
-        w = (w >> ((bank % pack) * sw).astype(np.uint32)) & np.uint32(
-            (1 << sw) - 1
-        )
-        acc = w if acc is None else acc & w
-    assert ((acc >> aligns.astype(np.uint32)) & 1).all()
-
-
-def test_vmem_plan_rejected_when_saturated():
-    """A pattern set that would saturate the VMEM-sized bloom must not
-    attach one (falls back to the HBM take path)."""
-    from php_aho_corasick_tpu.models.cascade import _plan_vmem_bloom
-
-    rng = np.random.default_rng(0)
-    n_longs = 1 << 14
-    codes = rng.integers(0, 2**32, n_longs * 9, dtype=np.uint64).astype(
-        np.uint32
-    )
-    aligns = np.tile(np.arange(9, dtype=np.int32), n_longs)
-    cfg = ScanConfig(cascade_vmem_bloom_bytes=1 << 21)  # N=4096 << n_longs
-    assert _plan_vmem_bloom(codes, aligns, n_longs, 9, cfg) is None
-
-
-def test_bloom_impl_vmem_falls_back_without_plan():
-    rng = random.Random(6)
-    patterns = [bytes(rng.choice(b"abcdef") for _ in range(16))
-                for _ in range(8)]
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
-                     cascade_mode="sampled", bloom_impl="pallas_vmem")
-    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)], cfg)
-    m.finalize()
-    cm = m.cascade_model
-    # force a plan with no vmem table
-    object.__setattr__(cm.plan, "vmem_words", None)
-    assert cm.bloom_impl() == "take"
-
-
-def test_sampled_vmem_launch_device_pipelined():
-    """The speculative filter->verify chain (bench steady state) through
-    the VMEM kernel: several launches in flight, one trailing fetch."""
-    import jax.numpy as jnp
-    from php_aho_corasick_tpu.ops.matches import pack_documents
-
-    rng = random.Random(77)
-    patterns = list({
-        bytes(rng.choice(b"abcdef") for _ in range(16)) for _ in range(32)
-    })
-    docs = []
-    for _ in range(4):
-        d = bytearray(rng.choice(b"abcdef") for _ in range(4000))
-        p = rng.choice(patterns)
-        pos = rng.randrange(0, len(d) - len(p))
-        d[pos : pos + len(p)] = p
-        docs.append(bytes(d))
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
-                     cascade_mode="sampled", bloom_impl="pallas_vmem",
-                     cascade_vmem_bloom_bytes=1 << 21, chunk_len=512)
-    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)], cfg)
-    m.finalize()
-    cm = m.cascade_model
-    assert cm.bloom_impl() == "pallas_vmem"
-    halo = m.automaton.max_len - 1
-    packed = pack_documents(docs, cfg.chunk_len, halo)
-    chunks = jnp.asarray(packed.chunks)
-    lengths = jnp.asarray(packed.lengths)
-    cap_a, cap_b = 256, 256
-    scalars = []
-    cells = []
-    for _ in range(3):
-        c, n_d, nf_d, nc_d = cm.launch_device(chunks, lengths, cap_a, cap_b)
-        scalars.extend((n_d, nf_d, nc_d))
-        cells.append(c)
-    flat = np.asarray(jnp.stack(scalars))
-    assert (flat[0::3] <= cap_a).all() and (flat[1::3] <= cap_b).all()
-    assert (flat[2::3] <= cm._cap_coarse).all()
-    docs_a, ends_a, pids_a = cm.emit_windows_arrays(
-        packed, np.asarray(cells[-1]), int(flat[1::3][-1])
-    )
-    want = []
-    for di, d in enumerate(docs):
-        for pos, pid in brute_force(patterns, d):
-            want.append((di, pos, pid))
-    got = list(zip(docs_a.tolist(), ends_a.tolist(), pids_a.tolist()))
-    assert got == want
-
-
-def test_sampled_vmem_sharded_parity():
-    """The two-stage VMEM filter inside the chained shard pass (per-chip
-    Mosaic kernel + fine probe + window verify) over the 8-device mesh."""
-    rng = random.Random(88)
-    patterns = list({
-        bytes(rng.choice(b"abcdef") for _ in range(16)) for _ in range(48)
-    })
-    docs = []
-    for _ in range(6):
-        d = bytearray(rng.choice(b"abcdef") for _ in range(5000))
-        for _ in range(4):
-            p = rng.choice(patterns)
-            pos = rng.randrange(0, len(d) - len(p))
-            d[pos : pos + len(p)] = p
-        docs.append(bytes(d))
-    pats = [{"id": i, "value": p} for i, p in enumerate(patterns)]
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=True,
-                     chunk_len=512, match_capacity=32,
-                     cascade_mode="sampled", bloom_impl="pallas_vmem",
-                     cascade_vmem_bloom_bytes=1 << 21)
-    m = Matcher(pats, cfg)
-    assert m.cascade_model.bloom_impl() == "pallas_vmem"
-    res = m.match_many(docs)
-    for doc, recs in zip(docs, res):
-        assert [(r["pos"], r["keyIdx"]) for r in recs] == brute_force(
-            patterns, doc
-        )
-
-
 # --------------------------------------------- stride-32 prefix refinement
 
 def test_stride32_long_patterns_prefix_refinement():
@@ -958,9 +616,10 @@ def test_stride32_long_patterns_prefix_refinement():
 
 def test_records2_superstep_parity():
     """The 2-class super-step record verifier (verify_windows_records2,
-    round-5 density lever) must equal the 1-step records path and brute
-    force exactly — including windows with finals at BOTH half-steps and
-    the overflow sentinel (dense plants force > VERIFY_KR finals)."""
+    which the sharded take-path record chain runs when records2_ok) must
+    equal brute force exactly — including windows with finals at BOTH
+    half-steps and the overflow sentinel (dense plants force > VERIFY_KR
+    finals)."""
     rng = random.Random(55)
     patterns = list({
         bytes(rng.choice(b"ab") for _ in range(16)) for _ in range(40)
@@ -973,14 +632,170 @@ def test_records2_superstep_parity():
         pos = rng.randrange(0, len(text) - len(p))
         text[pos : pos + len(p)] = p
     text = bytes(text)
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
+    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=True,
                      cascade_mode="sampled", chunk_len=1024,
-                     bloom_impl="pallas_vmem")
+                     bloom_impl="take")
     m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)],
                 cfg)
     cm = m.cascade_model
     assert cm is not None and cm.plan.mode == "sampled", cm.plan.reason
-    if not cm.records2_ok:
-        pytest.skip("records2 gate not met for this plan")
+    assert cm.records_ok and cm.records2_ok
     got = [(r["pos"], r["keyIdx"]) for r in m.match(text)]
     assert got == brute_force(patterns, text)
+
+
+# ------------------------------------- take paths: seeded sampled fuzz
+
+
+def _fuzz_case(seed, alphabet):
+    """Seeded sampled-cascade corpus: mixed-length long patterns (plus
+    shorts on odd seeds) over ``abcdef``, or random bytes covering all 256
+    values (n_classes = 257 > 255 drives the byte-gather verifier)."""
+    if alphabet == "abcdef":
+        rng = random.Random(4200 + seed)
+        patterns = list({
+            bytes(rng.choice(b"abcdef") for _ in range(rng.randint(9, 20)))
+            for _ in range(rng.randint(2, 50))
+        })
+        if seed % 2:
+            patterns += [b"xy", b"q"]
+        text = bytearray(rng.choice(b"abcdef") for _ in range(5000))
+        n_plant = 15
+    else:
+        rng = random.Random(8600 + seed)
+        patterns = list({
+            bytes(rng.randrange(256) for _ in range(rng.randint(9, 18)))
+            for _ in range(rng.randint(8, 40))
+        })
+        patterns += [bytes(range(16 * i, 16 * i + 16)) for i in range(16)]
+        text = bytearray(rng.randrange(256) for _ in range(4000))
+        n_plant = 12
+    patterns = list(dict.fromkeys(patterns))
+    for _ in range(n_plant):
+        p = rng.choice(patterns)
+        pos = rng.randrange(0, len(text) - len(p))
+        text[pos : pos + len(p)] = p
+    return patterns, bytes(text)
+
+
+@pytest.mark.parametrize("path", ["grouped", "flat"])
+@pytest.mark.parametrize(
+    "seed,alphabet",
+    [(s, "abcdef") for s in range(4)] + [(s, "bytes") for s in range(2)],
+)
+def test_sampled_take_paths_fuzz(seed, alphabet, path, monkeypatch):
+    """The same seeded fuzz through the grouped take filter (rank
+    extraction + prefix refinement) and the flat take filter."""
+    if path == "grouped":
+        from php_aho_corasick_tpu.models import cascade as cascmod
+
+        monkeypatch.setattr(cascmod, "_CODES_GENERAL_S", 1.0)
+    patterns, text = _fuzz_case(seed, alphabet)
+    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
+                     cascade_mode="sampled", bloom_impl="take",
+                     chunk_len=512, match_capacity=64)
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)],
+                cfg)
+    cm = m.cascade_model
+    assert cm is not None and cm.plan.mode == "sampled", cm.plan.reason
+    if path == "flat":
+        cm._force_take = True
+    L = m.device_corpus([text], shard=False).chunks_d.shape[1]
+    assert cm.grouped_path(L) == (path == "grouped"), cm.plan.reason
+    got = [(r["pos"], r["keyIdx"]) for r in m.match(text)]
+    assert got == brute_force(patterns, text)
+
+
+# ----------------------------------- grouped-path helpers vs numpy
+
+
+@pytest.mark.parametrize(
+    "block_r,mpr,n_blocks,density",
+    [(8, 8, 2, 0.3), (16, 4, 3, 0.5), (32, 8, 1, 0.05)],
+)
+def test_group_rank_extract_matches_numpy(block_r, mpr, n_blocks, density):
+    import jax.numpy as jnp
+
+    from php_aho_corasick_tpu.ops.filter_jax import group_rank_extract
+
+    rng = np.random.default_rng(block_r + mpr)
+    tot = n_blocks * block_r * 128
+    n_grid = tot - 77  # a padded tail must never count
+    hit_w = rng.random(tot) < density
+    w = np.where(hit_w, rng.integers(1, 2**31, tot), 0).astype(np.int32)
+    sw = np.where(rng.random(tot) < density / 4,
+                  rng.integers(1, 255, tot), 0).astype(np.int32)
+    hv = rng.integers(-(2**31), 2**31, tot, dtype=np.int64).astype(np.int32)
+    got = [np.asarray(x) for x in group_rank_extract(
+        jnp.asarray(w), jnp.asarray(sw), jnp.asarray(hv),
+        block_r, mpr, n_blocks, n_grid,
+    )]
+    r_w = np.full((n_blocks * mpr, 128), -1, np.int32)
+    w_w, s_w, h_w = (np.zeros((n_blocks * mpr, 128), np.int32)
+                     for _ in range(3))
+    cnt_w = np.zeros((n_blocks, 128), np.int32)
+    for b in range(n_blocks):
+        for lane in range(128):
+            k = 0
+            for r in range(block_r):
+                cell = (b * block_r + r) * 128 + lane
+                if cell >= n_grid or (w[cell] | sw[cell]) == 0:
+                    continue
+                cnt_w[b, lane] += 1
+                if k < mpr:
+                    row = b * mpr + k
+                    r_w[row, lane] = r
+                    w_w[row, lane] = w[cell]
+                    s_w[row, lane] = sw[cell]
+                    h_w[row, lane] = hv[cell]
+                k += 1
+    for g, want in zip(got, (r_w, w_w, s_w, h_w, cnt_w)):
+        np.testing.assert_array_equal(g, want)
+
+
+@pytest.mark.parametrize("stride,l16", [(4, 12), (8, 16), (32, 16)])
+def test_prefix_hash_select_matches_numpy(stride, l16):
+    """Rolling prefix hash of each cell's lowest-alignment candidate
+    window ``[p - j, p - j + l16)`` against a direct polynomial hash."""
+    import jax.numpy as jnp
+
+    from php_aho_corasick_tpu.ops.filter_jax import (
+        GRAM_BASE,
+        _prefix_hash_select,
+        _window_offsets,
+    )
+
+    rng = np.random.default_rng(stride)
+    spc = stride // 4
+    n_cells = 64
+    pad = 64  # zero bytes on both sides of the corpus
+    body = rng.integers(0, 256, n_cells * stride, dtype=np.int64)
+    buf = np.concatenate([np.zeros(pad), body, np.zeros(pad)]).astype(
+        np.uint8
+    )
+    words = buf.view(np.uint32).astype(np.int64).astype(np.uint32)
+    words = jnp.asarray(words.view(np.int32))
+    first = pad // 4 + np.arange(n_cells) * spc  # each cell's first word
+    c_min = _window_offsets(spc, l16)
+    w = rng.integers(0, 1 << min(stride, 31), n_cells, dtype=np.int64)
+    w[::7] = 0
+    if stride == 32:
+        w[1] = -(2**31)  # alignment 31 alone
+    w32 = jnp.asarray(w.astype(np.int64).astype(np.uint32).view(np.int32))
+
+    def get_plane(c):
+        return jnp.take(words, jnp.asarray(first + c))
+
+    got = np.asarray(_prefix_hash_select(get_plane, w32, stride, l16, c_min))
+    mask = (1 << stride) - 1
+    for m_ in range(n_cells):
+        v = int(w[m_]) & mask
+        if v == 0:
+            assert got[m_] == 0
+            continue
+        j = (v & -v).bit_length() - 1
+        start = pad + m_ * stride - j
+        h = 0
+        for x in buf[start : start + l16]:
+            h = (h * GRAM_BASE + int(x)) & 0xFFFFFFFF
+        assert int(got[m_]) & 0xFFFFFFFF == h, (m_, j)

@@ -337,22 +337,3 @@ def test_compressed_auto_picks_cascade_for_large_scans():
     assert m._pick_engine(16) == "dfa"
 
 
-def test_compressed_cascade_vmem_bloom_impl():
-    """Two-stage VMEM filter + compressed window verify, end to end."""
-    rng = random.Random(35)
-    patterns = list({
-        bytes(rng.choice(b"abcdef") for _ in range(14)) for _ in range(32)
-    })
-    text = bytearray(rng.choice(b"abcdef") for _ in range(5000))
-    for _ in range(6):
-        p = rng.choice(patterns)
-        pos = rng.randrange(0, len(text) - len(p))
-        text[pos : pos + len(p)] = p
-    text = bytes(text)
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
-                     table_format="compressed", cascade_mode="sampled",
-                     bloom_impl="pallas_vmem", chunk_len=512,
-                     cascade_vmem_bloom_bytes=1 << 21, match_capacity=64)
-    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)], cfg)
-    got = [(r["pos"], r["keyIdx"]) for r in m.match(text)]
-    assert got == _brute(patterns, text)

@@ -99,43 +99,6 @@ def test_handle_size_limit():
         m.device_corpus([b"x" * 4096])
 
 
-def test_handle_phase_cache_parity():
-    """The resident-corpus phase cache (fused_phase_grid threaded via
-    dev_inputs_for) must be bit-equivalent to the per-launch prep: force
-    the VMEM filter path (whose XLA mirror consumes phase_g) and compare
-    handle scans against the upload-per-call path."""
-    rng = random.Random(21)
-    # ~300 length-16 patterns plan q=9 stride=8 (the headline shape) —
-    # stride % 4 == 0 engages the cell-aligned fused path + phase cache
-    patterns = list({
-        bytes(rng.choice(b"abcdef") for _ in range(16)) for _ in range(300)
-    })
-    docs = []
-    for _ in range(5):
-        d = bytearray(rng.choice(b"abcdef") for _ in range(3000))
-        for _ in range(6):
-            p = rng.choice(patterns)
-            pos = rng.randrange(0, len(d) - len(p))
-            d[pos : pos + len(p)] = p
-        docs.append(bytes(d))
-    cfg = ScanConfig(backend="device", engine="cascade", auto_shard=False,
-                     chunk_len=512, bloom_impl="pallas_vmem")
-    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)],
-                cfg)
-    cm = m.cascade_model
-    assert cm is not None and cm.plan.stride % 4 == 0, cm.plan.reason
-    expect = m.match_arrays(docs)
-    h = m.device_corpus(docs)
-    got = m.match_arrays(h)
-    assert h._phase_cache, "phase cache not engaged"
-    for k in ("doc", "pos", "start_postion", "pattern"):
-        np.testing.assert_array_equal(got[k], expect[k])
-    got2 = m.match_arrays_many([h, h])
-    for g in got2:
-        for k in ("doc", "pos", "start_postion", "pattern"):
-            np.testing.assert_array_equal(g[k], expect[k])
-
-
 def test_records_fallback_counter():
     """match_arrays_many off the records fast path must count + name the
     fallback (VERDICT r4 weak #3) while staying exact."""

@@ -6,7 +6,7 @@ joined through a localhost coordinator — the first genuine exercise of
 ``parallel.mesh.init_distributed`` and of every ``process_count > 1``
 branch in api.py (``collect=True`` all_gathered match buffers must be
 addressable from both processes).  Reference analog: none — the reference
-is single-threaded (SURVEY §2.4); this is the TPU-native multi-host
+is single-threaded (SURVEY §2.4); this is the device-native multi-host
 backend's CPU-cluster rehearsal.
 """
 

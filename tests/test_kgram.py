@@ -113,7 +113,7 @@ def test_auto_engine_thresholds():
     m.finalize()
     assert m._pick_engine(50) == "dfa"
     assert m._pick_engine(1000) == "kgram"
-    # a bigger automaton (tile-ineligible, cascade-ineligible via shorts)
+    # a bigger automaton (cascade-ineligible via shorts)
     import random
 
     rng = random.Random(0)
@@ -124,5 +124,4 @@ def test_auto_engine_thresholds():
     })
     m2 = Matcher([{"value": p} for p in pats], cfg)
     m2.finalize()
-    assert m2.tile_model is None
     assert m2._pick_engine(1000) == "kgram"

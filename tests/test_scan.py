@@ -169,87 +169,6 @@ def test_multi_launch_split_is_exact():
     assert small == big
 
 
-def test_tile_engine_parity():
-    from php_aho_corasick_tpu import ScanConfig as SC
-
-    rng = random.Random(31)
-    patterns = [b"abca", b"cab", b"bb", b"a"]
-    text = bytes(rng.choice(b"abc") for _ in range(9000))
-    pats = [{"id": i, "value": p} for i, p in enumerate(patterns)]
-    tile = Matcher(pats, SC(backend="device", engine="tile",
-                            auto_shard=False)).match(text)
-    dfa = Matcher(pats, SC(backend="device", engine="dfa",
-                           auto_shard=False)).match(text)
-    assert tile == dfa
-    assert [(r["pos"], r["keyIdx"]) for r in tile] == brute_force(patterns, text)
-
-
-def test_tile_engine_forced_on_big_automaton_raises():
-    from php_aho_corasick_tpu import ScanConfig as SC
-
-    rng = random.Random(32)
-    pats = [bytes(rng.choice(b"abcdefghij") for _ in range(8)) for _ in range(400)]
-    m = Matcher([{"value": p} for p in set(pats)],
-                SC(backend="device", engine="tile"))
-    with pytest.raises(ValueError):
-        m.match(b"x" * 100)
-
-
-def test_tile_sharded_parity():
-    """The tile engine under a mesh runs its own sharded wrapper
-    (VERDICT r3 weak #4: it used to silently fall back to dense)."""
-    from php_aho_corasick_tpu import ScanConfig as SC
-
-    rng = random.Random(41)
-    patterns = [b"abca", b"cab", b"bb", b"a"]
-    docs = [bytes(rng.choice(b"abc") for _ in range(5000)) for _ in range(9)]
-    pats = [{"id": i, "value": p} for i, p in enumerate(patterns)]
-    on = Matcher(pats, SC(backend="device", engine="tile",
-                          auto_shard=True, chunk_len=512)).match_many(docs)
-    off = Matcher(pats, SC(backend="device", engine="tile",
-                           auto_shard=False, chunk_len=512)).match_many(docs)
-    assert on == off
-    for doc, recs in zip(docs, on):
-        assert [(r["pos"], r["keyIdx"]) for r in recs] == brute_force(
-            patterns, doc
-        )
-
-
-def test_tile_carry_short_rows():
-    """Regression (VERDICT r3 weak #4): the tile kernel's carry was
-    ``states[:, -1]`` — poisoned by pad bytes for rows shorter than L.
-    It must equal the dense engine's last-VALID-byte carry."""
-    from php_aho_corasick_tpu import ScanConfig as SC
-
-    m = Matcher([{"id": 0, "value": b"ab"}],
-                SC(backend="device", engine="tile", auto_shard=False))
-    m.finalize()
-    L = 64
-    chunks = np.zeros((2, L), np.uint8)
-    chunks[0, :3] = np.frombuffer(b"xza", np.uint8)
-    chunks[1, :5] = np.frombuffer(b"ababa", np.uint8)
-    lengths = np.asarray([3, 5], np.int32)
-    emit = np.zeros(2, np.int32)
-    *_, carry_t = m.tile_model.scan_compact_device(
-        chunks, lengths, emit, None, 16
-    )
-    *_, carry_d = m.model.scan_compact_device(
-        chunks, lengths, emit, None, 16
-    )
-    np.testing.assert_array_equal(np.asarray(carry_t), np.asarray(carry_d))
-    # row 0 ends mid-pattern: the true carry is the 'a' state, while the
-    # pad-poisoned carry would be the root
-    assert int(np.asarray(carry_t)[0]) != 0
-
-
-def test_tile_capacity_retry():
-    from php_aho_corasick_tpu import ScanConfig as SC
-
-    got = Matcher(["a"], SC(backend="device", engine="tile",
-                            match_capacity=4, auto_shard=False)).match(b"a" * 2000)
-    assert len(got) == 2000
-
-
 def test_match_many_empty_inputs(backend):
     c = Matcher(["ab"], ScanConfig(backend=backend))
     assert c.match_many([]) == []
